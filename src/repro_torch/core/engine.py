@@ -1,0 +1,235 @@
+"""The PPM engine: scatter → initFrontier → gather → filter, on torch tensors.
+
+Counterpart of the single-device :class:`repro.core.engine.Engine` over a
+partition-centric :class:`repro_torch.graph.layout.Layout`.  Each iteration
+follows paper Alg. 3/4:
+
+  1. *Scatter*, with a per-partition mode choice (Eq. 1 cost model, host
+     NumPy, as in the reference):
+       - **DC stream**: the fused DC step
+         (:class:`repro_torch.kernels.ops.FusedDCKernel`) gathers every
+         gather-order edge's source value from the vertex message table and
+         folds it into its destination; edges whose source is inactive or in
+         an SC-mode partition carry nothing.
+       - **SC stream**: active vertices of SC-mode partitions are compacted
+         (``nonzero``) and their CSR adjacency expanded into a
+         ``(value, dst)`` message list of exactly the active edge count,
+         then folded by :class:`repro_torch.kernels.ops.FoldKernel`.
+  2. *initFrontier*: ``init_fn`` on active vertices → selective continuity.
+  3. *Gather apply*: ``apply_fn`` updates touched vertices and proposes
+     activations.
+  4. *filterFrontier*: ``filter_fn`` on the union frontier.
+
+The loop is driven from the host: each iteration reads the per-partition
+active counts back for the Eq. 1 choice, as the reference's loop does, and
+the SC compaction's ``nonzero`` syncs once more.  The reference pads the SC
+stream to power-of-two budgets because XLA needs static shapes; here the
+stream has exactly the active edge count, and an active SC vertex set with
+no out-edges (the reference's degree-0 budget case) gives no stream.  The
+reference's composed DC path (``REPRO_FUSED=0``) and its batched engine are
+not ported yet.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..kernels.ops import FoldKernel, FusedDCKernel
+from ..obs.schema import IterStats
+from . import monoid as M
+from .cost import CostModel
+from .program import VertexProgram
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; a CUDA device must exist, there is no fallback."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions of the kernels on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
+    return dev
+
+
+def _tree_where(mask, new: dict, old: dict) -> dict:
+    return {key: M.where(mask, new[key], old[key]) for key in old}
+
+
+class Engine:
+    """Single-device PPM engine.
+
+    mode: 'hybrid' (paper's GPOP), 'dc' (GPOP_DC), 'sc' (GPOP_SC).
+    device: 'cuda' (default) runs the CUDA kernels; 'cpu' runs their plain
+    PyTorch versions.  plain=True runs the plain versions on any device.
+    """
+
+    def __init__(self, layout, program: VertexProgram, mode: str = "hybrid",
+                 bw_ratio: float = 2.0, device="cuda", plain: bool = False):
+        if mode not in ("hybrid", "dc", "sc"):
+            raise ValueError(f"mode must be hybrid, dc or sc, not {mode!r}")
+        self.device = resolve_device(device)
+        self.layout = layout
+        self.program = program
+        self.mode = mode
+        self.cost = CostModel.from_layout(layout, bw_ratio=bw_ratio)
+        L, dev = layout, self.device
+        self.k, self.q, self.n_pad = L.k, L.q, L.n_pad
+
+        # device-resident CSR for the SC stream (sentinel row n_pad: degree 0)
+        self.csr_indptr = torch.from_numpy(L.csr_indptr).to(dev)
+        self.csr_indices = torch.from_numpy(L.csr_indices).to(dev)
+        self.csr_w = (torch.from_numpy(L.csr_w).to(dev)
+                      if L.csr_w is not None else None)
+        self.deg = torch.from_numpy(L.deg).to(dev)              # int64[n_pad]
+
+        mono = program.monoid
+        self._fold = FoldKernel(mono.name, plain=plain)
+        self._fused = FusedDCKernel(L, mono.name, mono.dtype, dev,
+                                    plain=plain)
+        if program.apply_weight is not None and L.edge_w is not None:
+            self._fused.apply_weight = program.apply_weight
+
+    # ------------------------------------------------------------------
+    def _part_stats(self, active):
+        """Per-partition active vertices and active out-edges (host)."""
+        a = active.view(self.k, self.q)
+        counts = a.sum(1)
+        ea = (a * self.deg.view(self.k, self.q)).sum(1)
+        return counts.cpu().numpy(), ea.cpu().numpy()
+
+    def sc_stream(self, msgs_p, sc_active, be: int):
+        """The SC message list ``(vals, valid, dst)`` of the vertices in
+        ``sc_active``: one message per out-edge, ``be`` in all, in CSR
+        order."""
+        prog = self.program
+        ids = torch.nonzero(sc_active).squeeze(1)
+        degs = self.deg[ids]
+        cum = torch.cumsum(degs, 0)
+        j = torch.arange(be, device=self.device)
+        vi = torch.searchsorted(cum, j, right=True)
+        src_v = ids[vi]
+        e_idx = self.csr_indptr[src_v] + (j - (cum - degs)[vi])
+        dst = self.csr_indices[e_idx]
+        vals = M.from_bits(M.as_bits(msgs_p)[src_v], msgs_p.dtype)
+        if prog.apply_weight is not None and self.csr_w is not None:
+            vals = prog.apply_weight(vals, self.csr_w[e_idx]).to(
+                prog.monoid.dtype)
+        valid = torch.ones(be, dtype=torch.bool, device=self.device)
+        return vals, valid, dst
+
+    def step(self, state: dict, active, dc_mask: np.ndarray, it: int,
+             be: int = 0):
+        """One superstep.  ``dc_mask`` is the host's [k] bool DC-mode choice
+        and ``be`` the active out-edges of the other partitions (the SC
+        stream's length, known on the host from the Eq. 1 counts).  A stream
+        with nothing to carry is not launched."""
+        prog, mono, n_pad = self.program, self.program.monoid, self.n_pad
+        dev = self.device
+        msgs = prog.scatter_fn(state)
+        if msgs.dtype != mono.dtype:
+            msgs = msgs.to(mono.dtype)
+        msgs_p = M.from_bits(torch.cat(
+            [M.as_bits(msgs), M.as_bits(mono.identity_array((1,), dev))]),
+            mono.dtype)
+
+        # ---- initFrontier (selective continuity) ----
+        if prog.init_fn is not None:
+            st2, keep = prog.init_fn(state, it)
+            state = _tree_where(active, st2, state)
+            keep = keep & active
+        else:
+            keep = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+
+        dc_v = torch.from_numpy(dc_mask).to(dev).repeat_interleave(self.q)
+        acc = touched = None
+        # ---- DC stream: the fused gather -> fold over the dc_bin edges ----
+        if dc_mask.any():
+            no = torch.zeros(1, dtype=torch.bool, device=dev)
+            acc, touched = self._fused(msgs_p, torch.cat([active & dc_v, no]))
+        # ---- SC stream over the active vertices of SC-mode partitions ----
+        if be > 0:
+            stream = self.sc_stream(msgs_p, active & ~dc_v, be)
+            acc2, touched2 = self._fold(*stream, n_pad + 1)
+            if acc is None:
+                acc, touched = acc2, touched2
+            else:
+                acc, touched = mono.combine(acc, acc2), touched | touched2
+        if acc is None:
+            acc = mono.identity_array((n_pad,), dev)
+            touched = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+
+        acc = acc[:n_pad]
+        touched = touched[:n_pad]
+
+        # ---- Gather apply ----
+        st3, activated = prog.apply_fn(state, acc, touched, it)
+        state = _tree_where(touched, st3, state)
+        activated = activated & touched
+
+        # ---- filterFrontier on the union frontier ----
+        new_active = keep | activated
+        if prog.filter_fn is not None:
+            st4, fkeep = prog.filter_fn(state, it)
+            state = _tree_where(new_active, st4, state)
+            new_active = new_active & fkeep
+        return state, new_active
+
+    # ------------------------------------------------------------------
+    def run(self, state: dict, frontier, max_iters: int = 10_000,
+            until_empty: bool = True, collect_stats: bool = True):
+        """Host-driven loop: per-iteration mode decision (paper Eq. 1).
+
+        Returns ``(state, active, stats)``, ``stats`` a list of
+        :class:`IterStats`."""
+        active = torch.as_tensor(frontier, dtype=torch.bool,
+                                 device=self.device)
+        stats = []
+        for it in range(max_iters):
+            counts, ea = self._part_stats(active)
+            n_active = int(counts.sum())
+            if until_empty and n_active == 0:
+                break
+            has_active = counts > 0
+            if self.mode == "dc":
+                dc_mask = has_active
+            elif self.mode == "sc":
+                dc_mask = np.zeros(self.k, bool)
+            else:
+                dc_mask = self.cost.choose_dc(ea, has_active)
+            sc_sel = (~dc_mask) & has_active
+            t0 = time.perf_counter()
+            state, active = self.step(state, active, dc_mask, it,
+                                      be=int(ea[sc_sel].sum()))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if collect_stats:
+                b = self.cost.bytes_for(dc_mask, ea, has_active)
+                dc_p, sc_p = int(dc_mask.sum()), int(sc_sel.sum())
+                stats.append(IterStats(
+                    it=it, n_active=n_active, e_active=int(ea.sum()),
+                    dc_parts=dc_p, sc_parts=sc_p,
+                    dc_bytes=b["dc_bytes"], sc_bytes=b["sc_bytes"],
+                    wall_s=time.perf_counter() - t0,
+                    mode=("dc" if sc_p == 0 else
+                          "sc" if dc_p == 0 else "hybrid"),
+                    program=self.program.name))
+        return state, active, stats
+
+    # ------------------------------------------------------------------
+    def run_fused(self, state: dict, frontier, iters: int):
+        """Fixed-iteration loop in DC mode with no host round trips.
+
+        This is the PageRank-style path: all partitions scatter DC every
+        iteration (paper §6.2.2: "PageRank always uses DC mode")."""
+        active = torch.as_tensor(frontier, dtype=torch.bool,
+                                 device=self.device)
+        dc_mask = np.ones(self.k, bool)
+        for it in range(iters):
+            state, active = self.step(state, active, dc_mask, it)
+        return state, active

@@ -1,0 +1,111 @@
+"""Gather-phase combine monoids over torch tensors.
+
+The fold must be an associative and commutative monoid so that it can run as
+a data-parallel segmented reduction; the paper's apps use min and add.  The
+names, types and identities are those of :mod:`repro.core.monoid`.
+
+``uint32`` (the BFS and CC fold type) stays 4 bytes wide on every device,
+but torch implements few operations for it (on the CPU, torch 2.13 raises
+``NotImplementedError`` for ``lt``, ``minimum``, ``arange`` and
+``index_put_``).  So this module moves ``uint32`` data through same-width
+``int32`` views (:func:`as_bits`, :func:`where`) and computes on it widened
+to ``int64`` (:func:`widen`, :func:`narrow`); ``add`` wraps mod 2**32 as it
+does in JAX.  The CUDA kernels fold ``uint32`` natively with ``unsigned``
+atomics.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32,
+          torch.uint32: np.uint32}
+
+
+def as_bits(x: torch.Tensor) -> torch.Tensor:
+    """Same-width signed view of ``x`` for data movement (cat, index, where)."""
+    return x.view(torch.int32) if x.dtype == torch.uint32 else x
+
+
+def from_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`as_bits`."""
+    return x.view(torch.uint32) if dtype == torch.uint32 else x
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``uint32`` -> ``int64`` with the same values; other types unchanged."""
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return x
+
+
+def narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`widen`: int64 -> uint32 keeps the low 32 bits."""
+    if dtype == torch.uint32:
+        return x.to(torch.int32).view(torch.uint32)
+    return x.to(dtype)
+
+
+def where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` for tensors of one dtype, ``uint32`` included."""
+    return from_bits(torch.where(mask, as_bits(a), as_bits(b)), a.dtype)
+
+
+def full(shape, value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.full`` that also takes a ``uint32`` value above 2**31."""
+    if dtype == torch.uint32:
+        bits = int(np.array(value, np.uint32).view(np.int32))
+        return torch.full(shape, bits, dtype=torch.int32,
+                          device=device).view(torch.uint32)
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def identity_value(name: str, dtype: torch.dtype):
+    """The monoid's identity as a Python scalar."""
+    npd = _NUMPY[dtype]
+    floating = np.issubdtype(npd, np.floating)
+    if name == "add":
+        return 0.0 if floating else 0
+    if name == "min":
+        return float("inf") if floating else int(np.iinfo(npd).max)
+    if name == "max":
+        return float("-inf") if floating else int(np.iinfo(npd).min)
+    raise ValueError(f"unknown monoid {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Monoid:
+    name: str
+    dtype: torch.dtype
+    identity: object                      # Python scalar identity element
+
+    def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Elementwise ``a * b`` (associative and commutative)."""
+        wa, wb = widen(a), widen(b)
+        if self.name == "add":
+            out = wa + wb
+        elif self.name == "min":
+            out = torch.minimum(wa, wb)
+        else:
+            out = torch.maximum(wa, wb)
+        return narrow(out, self.dtype)
+
+    def identity_array(self, shape, device) -> torch.Tensor:
+        return full(shape, self.identity, self.dtype, device)
+
+
+def add(dtype=torch.float32) -> Monoid:
+    return Monoid("add", dtype, identity_value("add", dtype))
+
+
+def min_(dtype=torch.uint32) -> Monoid:
+    return Monoid("min", dtype, identity_value("min", dtype))
+
+
+def max_(dtype=torch.uint32) -> Monoid:
+    return Monoid("max", dtype, identity_value("max", dtype))
+
+
+REGISTRY = {"add": add, "min": min_, "max": max_}

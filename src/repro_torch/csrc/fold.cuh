@@ -1,0 +1,80 @@
+// Monoid folds shared by fused_dc.cu and segment_fold.cu.
+//
+// A fold is one of {add, min, max} over one of {float, int, unsigned}, the
+// combinations the Pallas kernels of the reference lower.  Each fold into
+// memory is one atomic, so the same code serves shared and global memory.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+#include <type_traits>
+
+enum { MONOID_ADD = 0, MONOID_MIN = 1, MONOID_MAX = 2 };
+enum { DTYPE_F32 = 0, DTYPE_I32 = 1, DTYPE_U32 = 2 };
+
+template <int M, typename T>
+struct Combo {
+  static constexpr int monoid = M;
+  using type = T;
+};
+
+template <int M, typename T>
+__device__ __forceinline__ T identity() {
+  if constexpr (M == MONOID_ADD) {
+    return T(0);
+  } else if constexpr (std::is_same_v<T, float>) {
+    return M == MONOID_MIN ? __uint_as_float(0x7f800000u)    // +inf
+                           : __uint_as_float(0xff800000u);   // -inf
+  } else if constexpr (std::is_same_v<T, int>) {
+    return M == MONOID_MIN ? INT_MAX : INT_MIN;
+  } else {
+    return M == MONOID_MIN ? 0xffffffffu : 0u;
+  }
+}
+
+// Fold v into *addr.  CUDA has no float atomicMin/atomicMax, so floats are
+// ordered through their bits: a float with the sign bit clear orders like its
+// bits read as a signed int, and one with the sign bit set orders in reverse
+// of its bits read as unsigned.  Every finite value, and +-inf, folds exactly
+// as min/max would; -0.0 folds as less than +0.0.  NaN payloads are outside
+// the contract (a positive NaN never wins a min, a negative one always does).
+template <int M, typename T>
+__device__ __forceinline__ void fold_into(T* addr, T v) {
+  if constexpr (M == MONOID_ADD) {
+    atomicAdd(addr, v);
+  } else if constexpr (std::is_same_v<T, float>) {
+    const int bits = __float_as_int(v);
+    if constexpr (M == MONOID_MIN) {
+      if (bits >= 0) atomicMin(reinterpret_cast<int*>(addr), bits);
+      else atomicMax(reinterpret_cast<unsigned*>(addr), static_cast<unsigned>(bits));
+    } else {
+      if (bits >= 0) atomicMax(reinterpret_cast<int*>(addr), bits);
+      else atomicMin(reinterpret_cast<unsigned*>(addr), static_cast<unsigned>(bits));
+    }
+  } else if constexpr (M == MONOID_MIN) {
+    atomicMin(addr, v);
+  } else {
+    atomicMax(addr, v);
+  }
+}
+
+// Calls fn(Combo<M, T>{}) for the runtime (monoid, dtype) pair.
+template <typename Fn>
+cudaError_t dispatch_combo(int monoid, int dtype, Fn fn) {
+#define REPRO_DTYPES(M)                                    \
+  switch (dtype) {                                         \
+    case DTYPE_F32: return fn(Combo<M, float>{});          \
+    case DTYPE_I32: return fn(Combo<M, int>{});            \
+    case DTYPE_U32: return fn(Combo<M, unsigned>{});       \
+    default: return cudaErrorInvalidValue;                 \
+  }
+  switch (monoid) {
+    case MONOID_ADD: REPRO_DTYPES(MONOID_ADD)
+    case MONOID_MIN: REPRO_DTYPES(MONOID_MIN)
+    case MONOID_MAX: REPRO_DTYPES(MONOID_MAX)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_DTYPES
+}

@@ -1,0 +1,43 @@
+"""Carry the reference's data across: layouts and vertex state.
+
+For a graph system the layout and the vertex state play the part of
+weights.  These helpers take the reference package's objects by duck typing
+(their NumPy fields, or anything ``np.asarray`` reads, JAX arrays included)
+and import nothing of it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .graph.layout import Layout
+
+_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
+          np.dtype(np.uint32): torch.uint32, np.dtype(np.int64): torch.int64,
+          np.dtype(np.bool_): torch.bool}
+
+
+def layout_from_reference(layout) -> Layout:
+    """A port :class:`Layout` with every field of ``layout`` (a
+    ``repro.graph.layout.Layout``), arrays copied."""
+    fields = {}
+    for f in dataclasses.fields(Layout):
+        v = getattr(layout, f.name)
+        fields[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
+    return Layout(**fields)
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """One array (NumPy or JAX) as a tensor of the same dtype on ``device``."""
+    a = np.asarray(x)
+    if a.dtype not in _TORCH:
+        raise TypeError(f"no tensor dtype for {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def state_to_torch(state: dict, device="cpu") -> dict:
+    """A vertex-state dict of NumPy or JAX arrays as tensors on ``device``;
+    float32, int32, uint32, int64 and bool keep their types."""
+    return {key: to_torch(v, device) for key, v in state.items()}

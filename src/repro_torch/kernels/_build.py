@@ -1,0 +1,180 @@
+"""Build the port's CUDA sources with ``nvcc`` and bind them with ``ctypes``.
+
+Each source under ``repro_torch/csrc/`` becomes a shared library with a plain
+C interface, compiled for ``sm_90a`` at first use into the build directory
+(``repro_torch/_build/`` unless ``REPRO_TORCH_BUILD_DIR`` names another).
+A library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt.  :func:`build_all` compiles every source at once, one
+``nvcc`` process each.  If ``nvcc`` is missing or a build fails, the build
+raises with the compiler's output; nothing carries on without the kernel.
+
+Every C entry point returns 0 or a ``cudaError_t``; :meth:`CudaKernel.launch`
+raises on a non-zero code and otherwise adds one to the kernel's
+``launches`` count, the evidence that a run went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+ENV_BUILD_DIR = "REPRO_TORCH_BUILD_DIR"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get(ENV_BUILD_DIR) or PACKAGE_DIR / "_build")
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc")
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if nvcc is None and (home / "bin" / "nvcc").exists():
+        nvcc = str(home / "bin" / "nvcc")
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of repro_torch are built from "
+            "source at first use and need the CUDA toolkit (PATH or "
+            "CUDA_HOME)")
+    return nvcc
+
+
+class CudaKernel:
+    """One CUDA source, its shared library and the count of its launches."""
+
+    def __init__(self, name: str, source: str, argtypes: tuple):
+        self.name = name
+        self.source = CSRC / source
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in sorted(CSRC.glob("*.cuh")) + [self.source]:
+            h.update(f.read_bytes())
+        return build_dir() / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self):
+        """Start ``nvcc`` unless the library is built.
+
+        Returns ``(process, temporary path)`` for :meth:`finish_build`, or
+        None when there is nothing to build."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(self.source)]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True), tmp
+
+    def finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp = started
+        self.build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {self.source.name} "
+                               f"(exit {proc.returncode}):\n{self.build_log}")
+        os.replace(tmp, self.library_path())
+
+    def lib(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self.finish_build(self.start_build())
+                lib = ctypes.CDLL(str(self.library_path()))
+                fn = getattr(lib, self.name)
+                fn.argtypes, fn.restype = list(self.argtypes), ctypes.c_int
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def launch(self, *args) -> None:
+        lib = self.lib()
+        rc = getattr(lib, self.name)(*args)
+        if rc != 0:
+            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} "
+                               f"({msg})")
+        self.launches += 1
+
+
+FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
+    P, P, I64,          # table, table_valid, table_len
+    P, P, P, P, P,      # idx, edge_valid, dst, w, part_off
+    I32, I32, I32,      # k, q, chunk
+    I64, I32, I32, I32,  # num_segments, monoid, dtype, edge_fn
+    P, P, P))           # acc, touched, stream
+SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
+    P, P, P,            # vals, valid, ids
+    I64, I64, I32, I32,  # n, num_segments, monoid, dtype
+    P, P, P))           # acc, touched, stream
+KERNELS = (FUSED_DC, SEGMENT_FOLD)
+
+
+def build_all() -> None:
+    """Compile every kernel's source in parallel and load the libraries."""
+    started = [k.start_build() for k in KERNELS]
+    errors = []
+    for k, st in zip(KERNELS, started):
+        try:
+            k.finish_build(st)
+        except RuntimeError as e:   # collect every compiler's output first
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+    for k in KERNELS:
+        k.lib()
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+MONOID_CODES = {"add": 0, "min": 1, "max": 2}
+
+
+def dtype_code(dtype) -> int:
+    codes = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
+    if dtype not in codes:
+        raise TypeError(f"the CUDA kernels fold float32, int32 and uint32, "
+                        f"not {dtype}")
+    return codes[dtype]
+
+
+def check_cuda(t, name: str, dtype=None, shape=None, device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given kind."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream

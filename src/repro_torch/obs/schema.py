@@ -1,0 +1,26 @@
+"""Per-iteration stat record of :meth:`repro_torch.core.engine.Engine.run`.
+
+``IterStats`` has the fields of :class:`repro.obs.schema.IterStats`, so the
+tests compare the two engines' records field by field.  The rest of the
+reference's telemetry (events, sinks, histograms) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class IterStats:
+    """Per-iteration record of an :meth:`Engine.run` invocation."""
+    it: int
+    n_active: int
+    e_active: int
+    dc_parts: int
+    sc_parts: int
+    dc_bytes: float
+    sc_bytes: float
+    wall_s: float
+    #: effective step mode ('dc' / 'sc' / 'hybrid')
+    mode: str = ""
+    #: vertex-program name
+    program: str = ""

@@ -1,0 +1,146 @@
+"""The CUDA kernels on a card against their plain PyTorch versions.
+
+Needs an NVIDIA GPU and nvcc, and skips without them.  This file imports
+neither JAX nor the reference package, so it runs where JAX is absent:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Payloads are integer-valued, so every kernel result is bit-exact, f32 add
+included, whatever order the atomics fold in.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch as rt
+from repro_torch.graph import build_layout, rmat, symmetrize
+from repro_torch.kernels import _build
+from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
+from repro_torch.kernels.fused_step import MAX_CHUNK, add_weight
+from repro_torch.kernels.ops import FusedDCKernel
+
+pytestmark = pytest.mark.cuda
+
+MONOIDS = ("add", "min", "max")
+DTYPES = {"float32": torch.float32, "int32": torch.int32,
+          "uint32": torch.uint32}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_all()
+    return torch.device("cuda")
+
+
+def _payload(rng, n, dtype, device):
+    lo = 0 if dtype == torch.uint32 else -64
+    a = rng.integers(lo, 64, n)
+    if dtype == torch.uint32:
+        return torch.from_numpy(a.astype(np.int32)).to(device).view(
+            torch.uint32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _assert_bit_exact(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        g8 = g.contiguous().view(torch.uint8) if g.dtype != torch.bool else g
+        w8 = w.contiguous().view(torch.uint8) if w.dtype != torch.bool else w
+        assert torch.equal(g8, w8)
+
+
+@pytest.mark.parametrize("ns", [4096, 300_001])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_segment_fold_kernel_matches_plain(dev, monoid, dtype, ns):
+    rng = np.random.default_rng(1)
+    n = 200_000
+    vals = _payload(rng, n, DTYPES[dtype], dev)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    ids = torch.from_numpy(
+        rng.integers(-8, ns + 8, n).astype(np.int32)).to(dev)
+    before = _build.SEGMENT_FOLD.launches
+    got = segment_fold_cuda(vals, valid, ids, ns, monoid)
+    torch.cuda.synchronize()
+    assert _build.SEGMENT_FOLD.launches == before + 1
+    _assert_bit_exact(got, segment_fold(vals, valid, ids, ns, monoid))
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    g = rmat(11, 8, seed=3, weighted=True)
+    wide = rmat(17, 2, seed=4)
+    return {"rmat": build_layout(g, k=8, edge_tile=64, msg_tile=32),
+            # q = 65536 > MAX_CHUNK: each partition spans two blocks
+            "wide": build_layout(wide, k=2, edge_tile=64, msg_tile=32)}
+
+
+@pytest.mark.parametrize("layout", ["rmat", "wide"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_fused_dc_kernel_matches_plain(dev, layouts, monoid, dtype, layout):
+    L = layouts[layout]
+    assert layout != "wide" or L.q > MAX_CHUNK
+    rng = np.random.default_rng(2)
+    m = L.n_pad + 1
+    table = _payload(rng, m, DTYPES[dtype], dev)
+    table_valid = torch.from_numpy(rng.random(m) < 0.5).to(dev)
+    kern = FusedDCKernel(L, monoid, DTYPES[dtype], dev)
+    plain = FusedDCKernel(L, monoid, DTYPES[dtype], dev, plain=True)
+    before = _build.FUSED_DC.launches
+    got = kern(table, table_valid)
+    torch.cuda.synchronize()
+    assert _build.FUSED_DC.launches == before + 1
+    _assert_bit_exact(got, plain(table, table_valid))
+
+
+def test_fused_dc_add_weight_matches_plain(dev, layouts):
+    L = layouts["rmat"]
+    rng = np.random.default_rng(3)
+    m = L.n_pad + 1
+    table = _payload(rng, m, torch.float32, dev)
+    table_valid = torch.from_numpy(rng.random(m) < 0.5).to(dev)
+    kern = FusedDCKernel(L, "min", torch.float32, dev)
+    plain = FusedDCKernel(L, "min", torch.float32, dev, plain=True)
+    kern.edge_w = plain.edge_w = _payload(rng, L.num_edges, torch.float32,
+                                          dev)
+    kern.apply_weight = plain.apply_weight = add_weight
+    _assert_bit_exact(kern(table, table_valid), plain(table, table_valid))
+    kern.apply_weight = lambda v, w: v * w
+    with pytest.raises(ValueError, match="edge function"):
+        kern(table, table_valid)
+
+
+def test_wrappers_check_their_inputs(dev):
+    vals = torch.zeros(8, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        segment_fold_cuda(vals, valid, torch.zeros(8, dtype=torch.int64,
+                                                   device=dev), 4, "min")
+    with pytest.raises(ValueError):
+        segment_fold_cuda(vals, valid, torch.zeros(8, dtype=torch.int32), 4,
+                          "min")
+
+
+def test_apps_on_the_card_match_the_cpu(dev):
+    g = rmat(10, 8, seed=5, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    S = build_layout(symmetrize(g), k=8, edge_tile=64, msg_tile=32)
+    src = int(np.argmax(g.out_degrees()))
+    for mode in ("hybrid", "dc", "sc"):
+        a, b = rt.bfs(L, src, mode=mode), rt.bfs(L, src, mode=mode,
+                                                 device="cpu")
+        assert np.array_equal(a["level"], b["level"])
+        assert np.array_equal(a["parent"], b["parent"])
+        a, b = rt.sssp(L, src, mode=mode), rt.sssp(L, src, mode=mode,
+                                                   device="cpu")
+        assert np.array_equal(a["dist"], b["dist"])
+    assert np.array_equal(rt.connected_components(S)["label"],
+                          rt.connected_components(S, device="cpu")["label"])
+    for fused in (True, False):
+        np.testing.assert_allclose(
+            rt.pagerank(L, fused=fused)["pr"],
+            rt.pagerank(L, fused=fused, device="cpu")["pr"], rtol=0,
+            atol=1e-6)

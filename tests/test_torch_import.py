@@ -1,0 +1,78 @@
+"""The port stands alone: it never imports JAX or the reference package,
+and its entry points do not fall back to the CPU when no card is present."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.graph import build_layout, rmat
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|"
+                       r"from repro[. ]|import repro\s*$)", re.MULTILINE)
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_import_leaves_jax_unloaded():
+    mods = _submodules()
+    assert "repro_torch.core.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {['repro_torch'] + mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'repro.')))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_reference(path):
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("entry", ["engine", "bfs", "cc", "sssp",
+                                   "pagerank"])
+def test_default_device_raises_without_a_card(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = rmat(6, 4, seed=0, weighted=True)
+    L = build_layout(g, k=4, edge_tile=16, msg_tile=8)
+    calls = {
+        "engine": lambda: repro_torch.Engine(L, repro_torch.apps.bfs_program()),
+        "bfs": lambda: repro_torch.bfs(L, source=0),
+        "cc": lambda: repro_torch.connected_components(L),
+        "sssp": lambda: repro_torch.sssp(L, source=0),
+        "pagerank": lambda: repro_torch.pagerank(L),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_cpu_run_matches_scipy_levels():
+    import scipy.sparse.csgraph as csg
+    from repro_torch.graph import to_scipy
+    g = rmat(6, 4, seed=0)
+    L = build_layout(g, k=4, edge_tile=16, msg_tile=8)
+    res = repro_torch.bfs(L, source=0, device="cpu")
+    d = csg.shortest_path(to_scipy(g), unweighted=True, indices=0)
+    want = np.where(np.isinf(d), -1, d).astype(np.int32)
+    assert np.array_equal(res["level"], want)
