@@ -15,26 +15,43 @@ Phases, in order; each prints lines that start with its name:
   kernels  each CUDA kernel against its plain PyTorch version on the card at
            the main path's shapes, every monoid x dtype on integer-valued
            payloads, bit-exact; median times from CUDA events beside the
-           bytes bound at 3.35 TB/s, the plain version's time, and for the
-           fold ``Tensor.scatter_reduce_`` (a yardstick the port never calls).
+           bytes bound at 3.35 TB/s, the plain version's time, and where one
+           PyTorch call computes the same function, that call's time (a
+           yardstick the port never calls): ``Tensor.scatter_reduce_`` for
+           the folds, a ``torch.sparse_csr_tensor`` product for the SpMV.
+           Then the composed DC step of PageRank timed whole and by part,
+           its plain-torch slot gather included.
   apps     BFS and SSSP from the highest-degree vertex, CC on the
            symmetrized graph and PageRank (10 iterations through
-           ``run_fused``), hybrid mode on the default device, each against a
-           host oracle; hybrid BFS again through the plain versions on the
-           card, bit-exact with the kernel run; every kernel launched by the
-           four app runs.
+           ``run_fused``, and 10 through ``run`` for per-iteration times),
+           hybrid mode on the default device, each against a host oracle;
+           hybrid BFS again through the plain versions on the card,
+           bit-exact with the kernel run.  Then the same runs on the
+           composed DC path (``REPRO_FUSED=0``: scatter into the bins, then
+           gather), bit-exact with the fused runs (PageRank within L1
+           1e-6).  Each path's kernels must have been launched by its runs.
+  tuning   ``autotune`` over the card's four tile geometries on the same
+           graph, the sweep's times and winner, and ``build_layout`` with
+           unset tiles reading the winner back from the cache.
 
-Then one JSON line with the kernels' numbers, and as the last line
+Launch counts are set to 0 before each path (fused apps, composed apps,
+tuning) and read after it.  Then one JSON line with the kernels' numbers,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device.  The full
 record, the compilers' register and shared-memory reports included, is
 also written to ``--report`` (default ``results/chip_smoke.json``).
 """
 import argparse
+import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -98,15 +115,21 @@ def main() -> int:
     import scipy.sparse.csgraph as csg
 
     import repro_torch as rt
+    from repro_torch.backend import tuning
     from repro_torch.core import monoid as M
     from repro_torch.graph import build_layout, rmat, symmetrize, to_scipy
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dc_gather import dc_gather, ref_dc_gather
     from repro_torch.kernels.fold_block import (blocked_segment_fold,
                                                 segment_fold)
-    from repro_torch.kernels.fused_step import (add_weight,
+    from repro_torch.kernels.fused_step import (ENV_FUSED, add_weight,
                                                 fused_scatter_fold,
                                                 ref_fused_scatter_fold)
-    from repro_torch.kernels.ops import FusedDCKernel
+    from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
+                                         ScatterKernel, SpmvKernel)
+    from repro_torch.kernels.segment_combine import (ref_segment_combine,
+                                                     segment_combine)
+    from repro_torch.kernels.spmv_block import ref_spmv_block, spmv_block
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,13 +185,17 @@ def main() -> int:
         return x.view(torch.int32) if x.dtype != torch.bool else x
 
     def max_abs_err(got, want, what):
-        (ga, gt), (wa, wt) = got, want
+        """Every output of a kernel bit-exact with its plain version's:
+        values (the largest absolute difference, 0.0 when they agree) and
+        touched flags."""
+        (ga, *gts), (wa, *wts) = got, want
         check(ga.dtype == wa.dtype and ga.shape == wa.shape, f"{what}: shape")
         same = bits(ga) == bits(wa)
         diff = (M.widen(ga).double() - M.widen(wa).double()).abs()
-        err = float(torch.where(same, 0.0, diff).max()) if len(ga) else 0.0
+        err = float(torch.where(same, 0.0, diff).max()) if ga.numel() else 0.0
         check(bool(same.all()), f"{what}: acc differs, max abs err {err}")
-        check(torch.equal(gt, wt), f"{what}: touched differs")
+        for gt, wt in zip(gts, wts):
+            check(torch.equal(gt, wt), f"{what}: touched differs")
         return err
 
     # ---------------- kernels ----------------
@@ -273,6 +300,156 @@ def main() -> int:
     report["segment_fold"] = {"max_abs_err": fold_err,
                               "by_num_segments": fold_rows}
 
+    # The composed DC path's kernels, at the shapes of its PageRank step:
+    # every partition in DC mode, every source live.
+    k, q = L.k, L.q
+    nm, ne, nt = L.num_msgs, L.num_edges, L.num_edge_tiles
+    sk = ScatterKernel(L, "add", torch.float32, dev)
+    scat = (sk.png_src_local, sk.png_valid, sk.png_tile_part)
+    geo = dict(k=k, q=q, msg_tile=L.msg_tile)
+    gather_err = 0.0
+    for monoid in MONOIDS:
+        for dname, dtype in dtypes.items():
+            x = payload(n_pad, dtype).view(k, q)
+            act = (torch.rand(n_pad, generator=gen, device=dev)
+                   < 0.5).view(k, q)
+            gather_err = max(gather_err, max_abs_err(
+                (dc_gather(x, act, *scat, monoid=monoid, **geo),),
+                (ref_dc_gather(x, act, *scat, monoid=monoid, **geo),),
+                f"dc_gather {monoid} {dname}"))
+    x = payload(n_pad, torch.float32).view(k, q)
+    act = torch.ones((k, q), dtype=torch.bool, device=dev)
+    gather_bytes = nm * (4 + 1 + 4) + (nm // L.msg_tile) * 4 + n_pad * (4 + 1)
+    report["dc_gather"] = {
+        "shape": {"slots": nm, "slot_tiles": nm // L.msg_tile, "k": k,
+                  "q": q},
+        "case": "add float32, all sources live", "max_abs_err": gather_err,
+        "ms": median_ms(lambda: dc_gather(x, act, *scat, **geo), 20),
+        "plain_ms": median_ms(lambda: ref_dc_gather(x, act, *scat, **geo),
+                              3),
+        "library_ms": None, "bytes": gather_bytes,
+        "bound_ms": bound_ms(gather_bytes)}
+    say("kernels", name="dc_gather", **report["dc_gather"])
+
+    gk = GatherKernel(L, "add", torch.float32, dev)
+    tiles = (gk.edge_dst_local, gk.tile_dst_part, gk.tile_src_part,
+             gk.tile_first)
+    geo = dict(k=k, q=q, edge_tile=L.edge_tile)
+    edge_valid = kern.edge_valid
+    combine_err = 0.0
+    for monoid in MONOIDS:
+        for dname, dtype in dtypes.items():
+            vals = payload(ne, dtype)
+            valid = edge_valid & (torch.rand(ne, generator=gen, device=dev)
+                                  < 0.7)
+            part_active = torch.rand(k, generator=gen, device=dev) < 0.5
+            combine_err = max(combine_err, max_abs_err(
+                segment_combine(vals, valid, *tiles, part_active,
+                                monoid=monoid, part_tile_off=gk.part_tile_off,
+                                **geo),
+                ref_segment_combine(vals, valid, *tiles, part_active,
+                                    monoid=monoid, **geo),
+                f"segment_combine {monoid} {dname}"))
+    vals = payload(ne, torch.float32)
+    all_parts = torch.ones(k, dtype=torch.bool, device=dev)
+    edge_dst64 = kern.edge_dst.to(torch.int64)
+    lib_vals = torch.where(edge_valid, vals, 0.0)
+    lib_acc = torch.zeros(ns, device=dev)
+    combine_bytes = ne * (4 + 1 + 4) + nt * 4 + (k + 1) * 8 + k \
+        + n_pad * (4 + 1)
+    report["segment_combine"] = {
+        "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q},
+        "case": "add float32, every source partition active",
+        "max_abs_err": combine_err,
+        "ms": median_ms(lambda: segment_combine(
+            vals, edge_valid, *tiles, all_parts,
+            part_tile_off=gk.part_tile_off, **geo), 20),
+        "plain_ms": median_ms(lambda: ref_segment_combine(
+            vals, edge_valid, *tiles, all_parts, **geo), 3),
+        "library_ms": median_ms(lambda: lib_acc.scatter_reduce_(
+            0, edge_dst64, lib_vals, "sum", include_self=True), 20),
+        "bytes": combine_bytes, "bound_ms": bound_ms(combine_bytes)}
+    say("kernels", name="segment_combine", **report["segment_combine"])
+    del lib_vals, lib_acc
+
+    vk = SpmvKernel(L, dev)
+    spmv_args = (vk.edge_src_local, vk.edge_dst_local, vk.edge_valid)
+    spmv_tiles = (vk.tile_dst_part, vk.tile_src_part, vk.tile_first)
+    w_int = payload(ne, torch.float32)       # integer weights: exact sums
+    spmv_err = 0.0
+    for weighted in (False, True):
+        x = payload(n_pad, torch.float32).view(k, q)
+        spmv_err = max(spmv_err, max_abs_err(
+            (spmv_block(x, *spmv_args, w_int, *spmv_tiles, weighted=weighted,
+                        part_tile_off=vk.part_tile_off, **geo),),
+            (ref_spmv_block(x, *spmv_args, w_int, *spmv_tiles,
+                            weighted=weighted, **geo),),
+            f"spmv_block weighted={weighted}"))
+    del w_int
+    # timed on the layout's own weights, as the tuner's row runs it
+    x = torch.rand((k, q), generator=gen, device=dev)
+    rows = {}
+    for weighted in (True, False):
+        w = vk.edge_w if weighted else None
+        spmv_bytes = ne * (4 + 4 + 1 + (4 if weighted else 0)) + nt * 4 \
+            + (k + 1) * 8 + 2 * n_pad * 4
+        rows[weighted] = {
+            "ms": median_ms(lambda: spmv_block(
+                x, *spmv_args, w, *spmv_tiles, weighted=weighted,
+                part_tile_off=vk.part_tile_off, **geo), 20),
+            "plain_ms": median_ms(lambda: ref_spmv_block(
+                x, *spmv_args, w, *spmv_tiles, weighted=weighted, **geo), 3),
+            "bytes": spmv_bytes, "bound_ms": bound_ms(spmv_bytes)}
+    # the yardstick: A^T (weighted) as a CSR matrix times x, built untimed
+    valid_np = L.edge_valid.astype(bool)
+    src_np = (np.repeat(L.tile_src_part.astype(np.int64), L.edge_tile) * q
+              + L.edge_src_local)[valid_np]
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([L.edge_dst[valid_np].astype(np.int64),
+                                       src_np])),
+            torch.from_numpy(L.edge_w[valid_np]), (n_pad, n_pad)).to(dev)
+        at_csr = coo.coalesce().to_sparse_csr()
+    del coo, src_np, valid_np
+    xv = x.reshape(-1, 1)
+    rows[True]["library_ms"] = median_ms(lambda: at_csr @ xv, 20)
+    rows[False]["library_ms"] = None
+    del at_csr
+    report["spmv_block"] = {
+        "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q},
+        "max_abs_err": spmv_err, "weighted": rows[True],
+        "unweighted": rows[False]}
+    say("kernels", name="spmv_block", **report["spmv_block"])
+
+    # PageRank's composed DC step, whole and by part, against the fused one
+    os.environ[ENV_FUSED] = "0"
+    pr_eng = rt.Engine(L, rt.apps.pagerank_program(g.n), mode="dc")
+    del os.environ[ENV_FUSED]
+    check(not pr_eng.fused, "REPRO_FUSED=0 did not select the composed path")
+    msgs = payload(n_pad, torch.float32)
+    live = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    bins = pr_eng._scatter(msgs, live)
+    bins_p = torch.cat([bins, torch.zeros(1, device=dev)])
+    valid_p = torch.ones(nm + 1, dtype=torch.bool, device=dev)
+    report["composed_dc_step"] = {
+        "case": "PageRank: add float32, every partition DC, all live",
+        "step_ms": median_ms(lambda: pr_eng.composed_dc(
+            msgs, live, all_parts), 10),
+        "dc_gather_ms": median_ms(lambda: pr_eng._scatter(msgs, live), 10),
+        "slot_gather_ms": median_ms(lambda: (
+            torch.index_select(bins_p, 0, pr_eng.msg_slot),
+            torch.index_select(valid_p, 0, pr_eng.msg_slot)), 10),
+        "slot_gather_bytes": ne * (4 + 4 + 1) + (nm + 1) * (4 + 1),
+        "segment_combine_ms": median_ms(lambda: pr_eng._gather(
+            vals, edge_valid, all_parts), 10),
+        "fused_dc_ms": fused_ms}
+    report["composed_dc_step"]["slot_gather_bound_ms"] = bound_ms(
+        report["composed_dc_step"]["slot_gather_bytes"])
+    say("kernels", name="composed_dc_step", **report["composed_dc_step"])
+    del pr_eng, bins, bins_p, valid_p, vk, gk, sk, kern, edge_valid, \
+        edge_dst64
+
     # ---------------- apps ----------------
     P = to_scipy(g)                                      # weighted
     apps = {}
@@ -290,6 +467,7 @@ def main() -> int:
             "wall_s": wall, "iterations": len(stats),
             "modes": [s.mode for s in stats],
             "iter_wall_s": [s.wall_s for s in stats],
+            "dc_iter_wall_s": sum(s.wall_s for s in stats if s.mode == "dc"),
             "launches": {k.name: k.launches - launches0[k.name]
                          for k in _build.KERNELS}}
         say("apps", app=name, **apps[name])
@@ -297,61 +475,81 @@ def main() -> int:
     def counts():
         return {k.name: k.launches for k in _build.KERNELS}
 
-    _build.reset_launch_counts()
-    c0 = counts()
-    bfs_res, wall = timed(lambda: rt.bfs(L, src))
-    app_record("bfs", bfs_res, wall, c0)
+    def run_apps(tag):
+        """BFS, SSSP, CC and PageRank (``run_fused``, then ``run``) on the
+        default device; returns their results and the launches they made,
+        counted from 0."""
+        calls = {"bfs": lambda: rt.bfs(L, src),
+                 "sssp": lambda: rt.sssp(L, src),
+                 "cc": lambda: rt.connected_components(S),
+                 "pagerank": lambda: rt.pagerank(L, iters=10),
+                 "pagerank_run": lambda: rt.pagerank(L, iters=10,
+                                                     fused=False)}
+        _build.reset_launch_counts()
+        out = {}
+        for name, fn in calls.items():
+            c0 = counts()
+            out[name], wall = timed(fn)
+            app_record(name + tag, out[name], wall, c0)
+        return out, counts()
+
+    fused_res, launches = run_apps("")
+    say("apps", path="fused", launches=launches)
+    for name in ("fused_dc", "segment_fold"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the fused path's apps")
+    bfs_res, sssp_res = fused_res["bfs"], fused_res["sssp"]
+    cc_res, pr_res = fused_res["cc"], fused_res["pagerank"]
     check([s.sc_parts for s in bfs_res["stats"]] == [t[3] for t in sc_iters],
           "the timed fold's SC stream is not one the hybrid BFS run folded")
-    c0 = counts()
-    sssp_res, wall = timed(lambda: rt.sssp(L, src))
-    app_record("sssp", sssp_res, wall, c0)
-    c0 = counts()
-    cc_res, wall = timed(lambda: rt.connected_components(S))
-    app_record("cc", cc_res, wall, c0)
-    c0 = counts()
-    pr_res, wall = timed(lambda: rt.pagerank(L, iters=10))
-    app_record("pagerank", pr_res, wall, c0)
-    launches = counts()
-    say("apps", launches_in_four_apps=launches)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the app runs")
 
     # host oracles
     t = time.perf_counter()
     d = csg.shortest_path(P, method="D", unweighted=True, indices=src)
     want_level = np.where(np.isinf(d), -1, d).astype(np.int32)
-    check(np.array_equal(bfs_res["level"], want_level),
-          "bfs levels differ from scipy")
-    lv, par = bfs_res["level"], bfs_res["parent"]
-    reached = lv > 0
-    check(bool(np.all(lv[par[reached]] == lv[reached] - 1)),
-          "bfs parents are not one level up")
     want_dist = csg.dijkstra(P, indices=src)
     fin = ~np.isinf(want_dist)
-    check(np.array_equal(np.isinf(sssp_res["dist"]), ~fin),
-          "sssp reaches other vertices than Dijkstra")
-    sssp_rel = float(np.max(np.abs(sssp_res["dist"][fin] - want_dist[fin])
-                            / np.maximum(want_dist[fin], 1e-30)))
-    check(np.allclose(sssp_res["dist"][fin], want_dist[fin], rtol=1e-5,
-                      atol=0), f"sssp differs from Dijkstra ({sssp_rel})")
     ncc, comp = csg.connected_components(to_scipy(gs), directed=False)
     least = np.full(ncc, g.n, np.int64)
     np.minimum.at(least, comp, np.arange(g.n))
-    check(np.array_equal(cc_res["label"].astype(np.int64), least[comp]),
-          "cc labels are not the least vertex id of each component")
-    x = np.full(g.n, 1.0 / g.n)
+    want_label = least[comp]
+    want_pr = np.full(g.n, 1.0 / g.n)
     PT = P1.T.tocsr()
     outdeg = g.out_degrees()
     for _ in range(10):
-        x = 0.15 / g.n + 0.85 * (PT @ np.where(
-            outdeg > 0, x / np.maximum(outdeg, 1), 0.0))
-    pr_l1 = float(np.abs(pr_res["pr"].astype(np.float64) - x).sum())
-    check(pr_l1 <= 1e-5, f"pagerank L1 distance {pr_l1} > 1e-5")
-    report["oracles"] = {"bfs_levels_equal": True, "sssp_max_rel_err":
-                         sssp_rel, "cc_components": int(ncc),
-                         "pagerank_l1": pr_l1,
-                         "oracle_s": time.perf_counter() - t}
+        want_pr = 0.15 / g.n + 0.85 * (PT @ np.where(
+            outdeg > 0, want_pr / np.maximum(outdeg, 1), 0.0))
+    oracle_s = time.perf_counter() - t
+
+    def check_oracles(res, tag):
+        bfs_r, sssp_r = res["bfs"], res["sssp"]
+        check(np.array_equal(bfs_r["level"], want_level),
+              f"bfs{tag} levels differ from scipy")
+        lv, par = bfs_r["level"], bfs_r["parent"]
+        reached = lv > 0
+        check(bool(np.all(lv[par[reached]] == lv[reached] - 1)),
+              f"bfs{tag} parents are not one level up")
+        check(np.array_equal(np.isinf(sssp_r["dist"]), ~fin),
+              f"sssp{tag} reaches other vertices than Dijkstra")
+        rel = float(np.max(np.abs(sssp_r["dist"][fin] - want_dist[fin])
+                           / np.maximum(want_dist[fin], 1e-30)))
+        check(np.allclose(sssp_r["dist"][fin], want_dist[fin], rtol=1e-5,
+                          atol=0), f"sssp{tag} differs from Dijkstra ({rel})")
+        check(np.array_equal(res["cc"]["label"].astype(np.int64),
+                             want_label),
+              f"cc{tag} labels are not the least vertex id of each component")
+        l1 = {}
+        for name in ("pagerank", "pagerank_run"):
+            l1[name] = float(np.abs(res[name]["pr"].astype(np.float64)
+                                    - want_pr).sum())
+            check(l1[name] <= 1e-5, f"{name}{tag} L1 distance {l1[name]} "
+                  "> 1e-5")
+        return {"bfs_levels_equal": True, "sssp_max_rel_err": rel,
+                "cc_components": int(ncc), "pagerank_l1": l1["pagerank"],
+                "pagerank_run_l1": l1["pagerank_run"]}
+
+    report["oracles"] = dict(check_oracles(fused_res, ""),
+                             oracle_s=oracle_s)
     say("apps", oracles=report["oracles"])
 
     # an engine's set-up (edge arrays to the card, the host check of the
@@ -364,24 +562,93 @@ def main() -> int:
           and np.array_equal(plain_res["parent"], bfs_res["parent"]),
           "hybrid bfs through the plain versions differs from the kernels")
     say("apps", app="bfs_plain_versions", wall_s=wall, bit_exact=True)
+    del plain
+
+    # the composed DC path: engines built while REPRO_FUSED=0
+    os.environ[ENV_FUSED] = "0"
+    composed_res, composed_launches = run_apps("_composed")
+    del os.environ[ENV_FUSED]
+    say("apps", path="composed", launches=composed_launches)
+    for name in ("dc_gather", "segment_combine"):
+        check(composed_launches[name] > 0,
+              f"kernel {name} was not launched by the composed path's apps")
+    check(composed_launches["fused_dc"] == 0,
+          "the composed path launched the fused DC kernel")
+    report["oracles_composed"] = check_oracles(composed_res, " (composed)")
+    for name, key in (("bfs", "level"), ("bfs", "parent"), ("sssp", "dist"),
+                      ("cc", "label")):
+        check(np.array_equal(composed_res[name][key], fused_res[name][key]),
+              f"composed {name} {key} differs from the fused run")
+    pr_diff = {}
+    for name in ("pagerank", "pagerank_run"):
+        pr_diff[name] = float(np.abs(
+            composed_res[name]["pr"].astype(np.float64)
+            - fused_res[name]["pr"]).sum())
+        check(pr_diff[name] <= 1e-6,
+              f"composed {name} is {pr_diff[name]} (L1) from the fused run")
+    report["composed_vs_fused"] = {"bit_exact": ["bfs", "sssp", "cc"],
+                                   "pagerank_l1": pr_diff}
+    say("apps", composed_vs_fused=report["composed_vs_fused"])
     report["apps"] = apps
     report["engine_setup_s"] = setup_s
+    del fused_res, composed_res
+
+    # ---------------- tuning ----------------
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    t = time.perf_counter()
+    _build.reset_launch_counts()
+    geom = tuning.autotune(
+        g, k=K_PARTS, device="cuda", force=True, cache_dir=tdir,
+        layouts={tuning.TileGeometry(EDGE_TILE, MSG_TILE, L.fold_tile,
+                                     L.fold_q): L})
+    tuning_launches = counts()
+    tune_s = time.perf_counter() - t
+    rec = json.loads(next(Path(tdir).glob("*.json")).read_text())
+    for row in rec["sweep"]:
+        say("tuning", **row)
+    check(tuning_launches["spmv_block"] > 0,
+          "kernel spmv_block was not launched by the tuning sweep")
+    os.environ[tuning.ENV_DIR] = tdir
+    t = time.perf_counter()
+    Lw = build_layout(g, k=K_PARTS)
+    layout_s = time.perf_counter() - t
+    del os.environ[tuning.ENV_DIR]
+    shutil.rmtree(tdir)
+    check((Lw.edge_tile, Lw.msg_tile) == (geom.edge_tile, geom.msg_tile),
+          f"build_layout took tiles ({Lw.edge_tile}, {Lw.msg_tile}), not the "
+          f"tuned ({geom.edge_tile}, {geom.msg_tile})")
+    del Lw
+    report["tuning"] = {"winner": dataclasses.asdict(geom),
+                        "sweep": rec["sweep"], "autotune_s": tune_s,
+                        "tuned_layout_s": layout_s,
+                        "launches": tuning_launches}
+    say("tuning", winner=report["tuning"]["winner"], autotune_s=tune_s,
+        tuned_layout_s=layout_s, launches=tuning_launches)
+
+    def row(name, source, replaces, launches_n, err, rec, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": launches_n, "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": rec["library_ms"]}
 
     kernels = [
-        {"name": "fused_dc", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_dc.cu",
-         "replaces": "src/repro/kernels/fused_step.py:192",
-         "launches": launches["fused_dc"], "max_abs_err": fused_err,
-         "ms": fused_ms, "plain_ms": fused_plain_ms,
-         "bound_ms": report["fused_dc"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "segment_fold", "route": "cuda",
-         "source": "src/repro_torch/csrc/segment_fold.cu",
-         "replaces": "src/repro/kernels/fold_two_level.py:158",
-         "launches": launches["segment_fold"], "max_abs_err": fold_err,
-         "ms": fold_rows[ns]["ms"], "plain_ms": fold_rows[ns]["plain_ms"],
-         "bound_ms": fold_rows[ns]["bound_ms"], "bound_by": "bytes",
-         "library_ms": fold_rows[ns]["library_ms"]},
+        row("fused_dc", "fused_dc.cu", "fused_step.py:192",
+            launches["fused_dc"], fused_err, report["fused_dc"],
+            report["fused_dc"]["bound_ms"]),
+        row("segment_fold", "segment_fold.cu", "fold_two_level.py:158",
+            launches["segment_fold"], fold_err, fold_rows[ns],
+            fold_rows[ns]["bound_ms"]),
+        row("dc_gather", "dc_gather.cu", "dc_gather.py:62",
+            composed_launches["dc_gather"], gather_err, report["dc_gather"],
+            report["dc_gather"]["bound_ms"]),
+        row("segment_combine", "segment_combine.cu", "segment_combine.py:122",
+            composed_launches["segment_combine"], combine_err,
+            report["segment_combine"], report["segment_combine"]["bound_ms"]),
+        row("spmv_block", "spmv_block.cu", "spmv_block.py:69",
+            tuning_launches["spmv_block"], spmv_err, rows[True],
+            rows[True]["bound_ms"]),
     ]
     report["kernels"] = kernels
     Path(args.report).parent.mkdir(parents=True, exist_ok=True)

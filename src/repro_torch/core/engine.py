@@ -6,11 +6,22 @@ follows paper Alg. 3/4:
 
   1. *Scatter*, with a per-partition mode choice (Eq. 1 cost model, host
      NumPy, as in the reference):
-       - **DC stream**: the fused DC step
-         (:class:`repro_torch.kernels.ops.FusedDCKernel`) gathers every
-         gather-order edge's source value from the vertex message table and
-         folds it into its destination; edges whose source is inactive or in
-         an SC-mode partition carry nothing.
+       - **DC stream**, in one of the reference's two lowerings, chosen when
+         the engine is built (``REPRO_FUSED``,
+         :func:`repro_torch.kernels.fused_step.fused_enabled`):
+           * fused (the default):
+             :class:`repro_torch.kernels.ops.FusedDCKernel` gathers every
+             gather-order edge's source value from the vertex message table
+             and folds it into its destination;
+           * composed (``REPRO_FUSED=0``, the paper's two phases, §3.3):
+             :class:`repro_torch.kernels.ops.ScatterKernel` writes the
+             values-only ``[NM]`` message bins, a slot gather reads them into
+             the ``[NE]`` gather-order edge stream, and
+             :class:`repro_torch.kernels.ops.GatherKernel` folds that stream
+             into each destination partition, skipping the tiles of source
+             partitions that are not in DC mode.
+         Either way, edges whose source is inactive or in an SC-mode
+         partition carry nothing.
        - **SC stream**: active vertices of SC-mode partitions are compacted
          (``nonzero``) and their CSR adjacency expanded into a
          ``(value, dst)`` message list of exactly the active edge count,
@@ -26,8 +37,7 @@ the SC compaction's ``nonzero`` syncs once more.  The reference pads the SC
 stream to power-of-two budgets because XLA needs static shapes; here the
 stream has exactly the active edge count, and an active SC vertex set with
 no out-edges (the reference's degree-0 budget case) gives no stream.  The
-reference's composed DC path (``REPRO_FUSED=0``) and its batched engine are
-not ported yet.
+reference's batched engine is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ import time
 import numpy as np
 import torch
 
-from ..kernels.ops import FoldKernel, FusedDCKernel
+from ..kernels.fused_step import fused_enabled
+from ..kernels.ops import (FoldKernel, FusedDCKernel, GatherKernel,
+                           ScatterKernel)
 from ..obs.schema import IterStats
 from . import monoid as M
 from .cost import CostModel
@@ -90,10 +102,21 @@ class Engine:
 
         mono = program.monoid
         self._fold = FoldKernel(mono.name, plain=plain)
-        self._fused = FusedDCKernel(L, mono.name, mono.dtype, dev,
-                                    plain=plain)
-        if program.apply_weight is not None and L.edge_w is not None:
-            self._fused.apply_weight = program.apply_weight
+        self.fused = fused_enabled()
+        if self.fused:
+            self._fused = FusedDCKernel(L, mono.name, mono.dtype, dev,
+                                        plain=plain)
+            if program.apply_weight is not None and L.edge_w is not None:
+                self._fused.apply_weight = program.apply_weight
+        else:
+            self._scatter = ScatterKernel(L, mono.name, mono.dtype, dev,
+                                          plain=plain)
+            self._gather = GatherKernel(L, mono.name, mono.dtype, dev,
+                                        plain=plain)
+            self.png_src = torch.from_numpy(L.png_src).to(dev)       # [NM]
+            self.msg_slot = torch.from_numpy(L.msg_slot).to(dev)     # [NE]
+            self.edge_w = (torch.from_numpy(L.edge_w).to(dev)
+                           if L.edge_w is not None else None)
 
     # ------------------------------------------------------------------
     def _part_stats(self, active):
@@ -123,6 +146,35 @@ class Engine:
         valid = torch.ones(be, dtype=torch.bool, device=self.device)
         return vals, valid, dst
 
+    def composed_dc(self, msgs, dc_active, dc_parts):
+        """The composed DC stream: ``(acc, touched)`` over ``[n_pad]``.
+
+        ``dc_active`` marks the active vertices of DC-mode partitions and
+        ``dc_parts`` the DC-mode partitions.  Scatter writes the message
+        bins, the slot gather reads them into the gather-order edge stream
+        (4-byte values moved through their ``int32`` bits, as in
+        :meth:`sc_stream`), the edge function applies per edge, and the
+        gather fold skips the tiles of source partitions not in DC mode.
+        A slot is valid iff its source is in ``dc_active`` (the reference's
+        ``active[png_src] & dc_mask[png_part]``); pad slots name the
+        sentinel vertex ``n_pad``, which never is."""
+        prog, mono, dev = self.program, self.program.monoid, self.device
+        no = torch.zeros(1, dtype=torch.bool, device=dev)
+        ident = mono.identity_array((1,), dev)
+        msg_data = self._scatter(msgs, dc_active)                    # [NM]
+        dc_valid = torch.index_select(torch.cat([dc_active, no]), 0,
+                                      self.png_src)                  # [NM]
+        msg_data_p = torch.cat([M.as_bits(msg_data), M.as_bits(ident)])
+        dc_valid_p = torch.cat([dc_valid, no])
+        edge_vals = M.from_bits(
+            torch.index_select(msg_data_p, 0, self.msg_slot), mono.dtype)
+        edge_valid = torch.index_select(dc_valid_p, 0, self.msg_slot)
+        if prog.apply_weight is not None and self.edge_w is not None:
+            edge_vals = prog.apply_weight(edge_vals, self.edge_w).to(
+                mono.dtype)
+            edge_vals = M.where(edge_valid, edge_vals, ident)
+        return self._gather(edge_vals, edge_valid, dc_parts)
+
     def step(self, state: dict, active, dc_mask: np.ndarray, it: int,
              be: int = 0):
         """One superstep.  ``dc_mask`` is the host's [k] bool DC-mode choice
@@ -146,16 +198,23 @@ class Engine:
         else:
             keep = torch.zeros(n_pad, dtype=torch.bool, device=dev)
 
-        dc_v = torch.from_numpy(dc_mask).to(dev).repeat_interleave(self.q)
+        dc_t = torch.from_numpy(dc_mask).to(dev)
+        dc_v = dc_t.repeat_interleave(self.q)
         acc = touched = None
-        # ---- DC stream: the fused gather -> fold over the dc_bin edges ----
+        # ---- DC stream over the dc_bin edges, fused or composed ----
         if dc_mask.any():
-            no = torch.zeros(1, dtype=torch.bool, device=dev)
-            acc, touched = self._fused(msgs_p, torch.cat([active & dc_v, no]))
+            if self.fused:
+                no = torch.zeros(1, dtype=torch.bool, device=dev)
+                acc, touched = self._fused(msgs_p,
+                                           torch.cat([active & dc_v, no]))
+                acc, touched = acc[:n_pad], touched[:n_pad]
+            else:
+                acc, touched = self.composed_dc(msgs, active & dc_v, dc_t)
         # ---- SC stream over the active vertices of SC-mode partitions ----
         if be > 0:
             stream = self.sc_stream(msgs_p, active & ~dc_v, be)
             acc2, touched2 = self._fold(*stream, n_pad + 1)
+            acc2, touched2 = acc2[:n_pad], touched2[:n_pad]
             if acc is None:
                 acc, touched = acc2, touched2
             else:
@@ -163,9 +222,6 @@ class Engine:
         if acc is None:
             acc = mono.identity_array((n_pad,), dev)
             touched = torch.zeros(n_pad, dtype=torch.bool, device=dev)
-
-        acc = acc[:n_pad]
-        touched = touched[:n_pad]
 
         # ---- Gather apply ----
         st3, activated = prog.apply_fn(state, acc, touched, it)

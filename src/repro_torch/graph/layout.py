@@ -21,8 +21,10 @@ DC kernel gives one thread block to each destination partition and reads that
 partition's contiguous edge range ``[blk_off[p'*k], blk_off[(p'+1)*k])``.
 
 A NumPy copy of :mod:`repro.graph.layout`: the same arrays, field for field.
-Unset tiles resolve from the static defaults (256/128/256/256) and the
-``REPRO_FOLD_TILE`` / ``REPRO_FOLD_Q`` knobs; there is no tuning cache yet.
+Unset tiles resolve through the port's tuning cache
+(:func:`repro_torch.backend.tuning.resolve_geometry`), with the
+``REPRO_FOLD_TILE`` / ``REPRO_FOLD_Q`` knobs outranking it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,9 +34,6 @@ from typing import Optional
 import numpy as np
 
 from .csr import Graph
-
-DEFAULT_EDGE_TILE = 256
-DEFAULT_MSG_TILE = 128
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -152,20 +151,32 @@ def build_layout(g: Graph, k: Optional[int] = None,
 
     ``k`` defaults to the paper's rule (§3.1), see :func:`resolve_k`.
 
-    ``edge_tile``/``msg_tile``/``fold_tile``/``fold_q`` left unset take
-    the static defaults (256/128/256/256); ``fold_tile`` and ``fold_q``
+    ``edge_tile``/``msg_tile``/``fold_tile``/``fold_q`` left unset resolve
+    through the :mod:`repro_torch.backend.tuning` cache: an ``autotune()``
+    sweep recorded for this platform and graph family wins, otherwise the
+    static defaults (256/128/256/256) apply.  ``fold_tile`` and ``fold_q``
     honour the ``REPRO_FOLD_TILE`` / ``REPRO_FOLD_Q`` knobs first.
     """
     n, m = g.n, g.m
     k = resolve_k(n, k, parallel_units, cache_vertices)
-    edge_tile = DEFAULT_EDGE_TILE if edge_tile is None else edge_tile
-    msg_tile = DEFAULT_MSG_TILE if msg_tile is None else msg_tile
-    if fold_tile is None:
-        from ..kernels.fold_block import default_fold_tile
-        fold_tile = default_fold_tile()
-    if fold_q is None:
-        from ..kernels.fold_two_level import default_fold_q
-        fold_q = default_fold_q()
+    if edge_tile is None or msg_tile is None or fold_tile is None \
+            or fold_q is None:
+        import os
+
+        from ..backend.tuning import resolve_geometry
+        from ..kernels.fold_block import ENV_FOLD_TILE, default_fold_tile
+        from ..kernels.fold_two_level import ENV_FOLD_Q, default_fold_q
+        geom = resolve_geometry(n, m, k, weighted=g.weighted)
+        edge_tile = geom.edge_tile if edge_tile is None else edge_tile
+        msg_tile = geom.msg_tile if msg_tile is None else msg_tile
+        # the knobs outrank the tuned or static geometry, so an operator
+        # can steer a deployed layout without a new sweep
+        if fold_tile is None:
+            fold_tile = (default_fold_tile() if os.environ.get(ENV_FOLD_TILE)
+                         else geom.fold_tile)
+        if fold_q is None:
+            fold_q = (default_fold_q() if os.environ.get(ENV_FOLD_Q)
+                      else geom.fold_q)
     q = _pad_to(-(-n // k), q_mult)
     n_pad = k * q
 

@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.engine import resolve_device
 from .graph.layout import Layout
 
 _TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
@@ -29,15 +30,20 @@ def layout_from_reference(layout) -> Layout:
     return Layout(**fields)
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
-    """One array (NumPy or JAX) as a tensor of the same dtype on ``device``."""
+def to_torch(x, device="cuda") -> torch.Tensor:
+    """One array (NumPy or JAX) as a tensor of the same dtype on ``device``
+    (a CUDA device by default, which must exist; pass ``device="cpu"`` for
+    the CPU)."""
+    dev = resolve_device(device)
     a = np.asarray(x)
     if a.dtype not in _TORCH:
         raise TypeError(f"no tensor dtype for {a.dtype}")
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a)).to(dev)
 
 
-def state_to_torch(state: dict, device="cpu") -> dict:
-    """A vertex-state dict of NumPy or JAX arrays as tensors on ``device``;
-    float32, int32, uint32, int64 and bool keep their types."""
-    return {key: to_torch(v, device) for key, v in state.items()}
+def state_to_torch(state: dict, device="cuda") -> dict:
+    """A vertex-state dict of NumPy or JAX arrays as tensors on ``device``
+    (as :func:`to_torch`); float32, int32, uint32, int64 and bool keep their
+    types."""
+    dev = resolve_device(device)
+    return {key: to_torch(v, dev) for key, v in state.items()}

@@ -127,7 +127,23 @@ SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
     P, P, P,            # vals, valid, ids
     I64, I64, I32, I32,  # n, num_segments, monoid, dtype
     P, P, P))           # acc, touched, stream
-KERNELS = (FUSED_DC, SEGMENT_FOLD)
+DC_GATHER = CudaKernel("dc_gather", "dc_gather.cu", (
+    P, P, P, P, P,      # x, active, png_src_local, png_valid, png_tile_part
+    I64, I32, I32, I32,  # nm, k, q, msg_tile
+    ctypes.c_uint,      # ident_bits
+    P, P))              # out, stream
+SEGMENT_COMBINE = CudaKernel("segment_combine", "segment_combine.cu", (
+    P, P, P,            # vals, valid, dst_local
+    P, P, P,            # tile_src_part, part_tile_off, part_active
+    I32, I32, I32, I32,  # k, q, edge_tile, chunk
+    I32, I32,           # monoid, dtype
+    P, P, P))           # acc, touched, stream
+SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
+    P, P, P, P, P,      # x, src_local, dst_local, valid, w
+    P, P,               # tile_src_part, part_tile_off
+    I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
+    P, P))              # y, stream
+KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK)
 
 
 def build_all() -> None:

@@ -24,15 +24,26 @@ The CUDA kernel knows one edge function, :func:`add_weight`; any other
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..core import monoid as M
 from . import _build
 from .fold_block import segment_fold
 
+ENV_FUSED = "REPRO_FUSED"
+
 #: widest partition slice one thread block keeps in shared memory: 40960
 #: four-byte accumulators plus touched bytes is 200 KB of the 227 KB limit
 MAX_CHUNK = 40960
+
+
+def fused_enabled() -> bool:
+    """``REPRO_FUSED=0`` turns the fused DC step off: engines built while it
+    is set run the composed scatter -> slot gather -> gather fold instead
+    (the reference's own switch).  Default: on."""
+    return os.environ.get(ENV_FUSED, "1") != "0"
 
 
 def add_weight(vals, w):

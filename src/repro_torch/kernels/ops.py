@@ -1,15 +1,16 @@
-"""Engine-facing wrappers around the port's two kernels.
+"""Engine-facing wrappers around the port's kernels.
 
-Counterparts of ``FoldKernel`` and ``FusedDCKernel`` in
-:mod:`repro.kernels.ops`.  :class:`FusedDCKernel` binds a layout once: it
-moves the gather-order edge arrays to the engine's device and checks, on the
-host, the precondition of the CUDA fused kernel.
+Counterparts of ``FoldKernel``, ``FusedDCKernel``, ``ScatterKernel``,
+``GatherKernel`` and ``SpmvKernel`` in :mod:`repro.kernels.ops`.  The
+layout-bound classes bind a layout once: they move its arrays to the
+engine's device and check, on the host, the preconditions of the CUDA
+kernels.
 
-Both take ``plain=True`` to run the plain PyTorch versions on any device;
+Each takes ``plain=True`` to run the plain PyTorch versions on any device;
 ``chip_smoke.py`` uses that to hold a whole app run on the card against the
 kernels.  Otherwise the device of the tensors decides: the plain version on
 the CPU, the CUDA kernel on a card.  The launch counts live with the kernels
-(:data:`repro_torch.kernels._build.FUSED_DC` and ``SEGMENT_FOLD``).
+(:data:`repro_torch.kernels._build.KERNELS`).
 """
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ import numpy as np
 import torch
 
 from ..core import monoid as M
+from .dc_gather import dc_gather, ref_dc_gather
 from .fold_block import blocked_segment_fold, segment_fold
 from .fused_step import fused_scatter_fold, ref_fused_scatter_fold
+from .segment_combine import ref_segment_combine, segment_combine
+from .spmv_block import ref_spmv_block, spmv_block
 
 
 class FoldKernel:
@@ -101,3 +105,139 @@ class FusedDCKernel:
             table, table_valid, self.edge_src, self.edge_valid,
             self.edge_dst, self.n_pad + 1, monoid=self.monoid,
             part_off=self.part_off, q=self.q, apply_weight=aw, w=w)
+
+
+def _partition_tile_offsets(layout) -> np.ndarray:
+    """``int64[k+1]``: destination partition ``p``'s edge tiles are
+    ``[off[p], off[p+1])``.  Raises unless the tiles are destination-major,
+    ``tile_first`` marks exactly each partition's first tile and the tiles
+    cover the edge arrays: the precondition of the CUDA kernels that read
+    the tiles by partition (``segment_combine.cu``, ``spmv_block.cu``)."""
+    k, nt = layout.k, layout.num_edge_tiles
+    dst = layout.tile_dst_part.astype(np.int64)
+    if nt * layout.edge_tile != layout.num_edges:
+        raise ValueError("the edge tiles do not cover the gather-order edges")
+    if nt and (dst[0] < 0 or dst[-1] >= k or np.any(np.diff(dst) < 0)):
+        raise ValueError("the edge tiles are not destination-major")
+    off = np.searchsorted(dst, np.arange(k + 1), side="left").astype(np.int64)
+    first = np.zeros(nt, dtype=bool)
+    first[off[:-1][off[:-1] < off[1:]]] = True
+    if not np.array_equal(first, layout.tile_first.astype(bool)):
+        raise ValueError("tile_first does not mark each destination "
+                         "partition's first tile")
+    return off
+
+
+class _TileGeometry:
+    """The tile arrays of a layout on a device, shared by the two
+    destination-major kernels."""
+
+    def __init__(self, layout, device):
+        self.device = torch.device(device)
+        self.k, self.q, self.edge_tile = layout.k, layout.q, layout.edge_tile
+        self.part_tile_off = torch.from_numpy(
+            _partition_tile_offsets(layout)).to(self.device)
+        self.tile_dst_part = torch.from_numpy(layout.tile_dst_part).to(
+            self.device)
+        self.tile_src_part = torch.from_numpy(layout.tile_src_part).to(
+            self.device)
+        self.tile_first = torch.from_numpy(
+            layout.tile_first.astype(bool)).to(self.device)
+        self.edge_dst_local = torch.from_numpy(layout.edge_dst_local).to(
+            self.device)
+        # [k, 1]: destination partitions that receive edge tiles
+        self.has_tiles = torch.from_numpy(
+            layout.part_has_tiles.astype(bool)).to(self.device)[:, None]
+
+    def geometry(self):
+        return dict(k=self.k, q=self.q, edge_tile=self.edge_tile)
+
+
+class GatherKernel(_TileGeometry):
+    """Gather-phase fold of the composed DC path bound to a layout:
+    ``(edge_vals, edge_valid, part_active) -> (acc, touched)`` over
+    ``[n_pad]``.  A destination partition with no tiles gets the identity
+    and is untouched, as in the reference."""
+
+    def __init__(self, layout, monoid_name: str, dtype: torch.dtype, device,
+                 plain: bool = False):
+        super().__init__(layout, device)
+        self.monoid = monoid_name
+        self.plain = plain
+        self.ident = M.full((1, 1), M.identity_value(monoid_name, dtype),
+                            dtype, self.device)
+
+    def __call__(self, edge_vals, edge_valid, part_active):
+        part_active = torch.as_tensor(part_active, device=self.device).to(
+            torch.bool)
+        args = (edge_vals, edge_valid, self.edge_dst_local,
+                self.tile_dst_part, self.tile_src_part, self.tile_first,
+                part_active)
+        if self.plain:
+            acc, touched = ref_segment_combine(*args, monoid=self.monoid,
+                                               **self.geometry())
+        else:
+            acc, touched = segment_combine(
+                *args, monoid=self.monoid, part_tile_off=self.part_tile_off,
+                **self.geometry())
+        acc = M.where(self.has_tiles, acc, self.ident)
+        touched = touched & self.has_tiles
+        return acc.reshape(-1), touched.reshape(-1)
+
+
+class ScatterKernel:
+    """DC scatter of the composed path bound to a layout: ``(x_flat,
+    active_flat) -> [NM]`` message bins."""
+
+    def __init__(self, layout, monoid_name: str, dtype: torch.dtype, device,
+                 plain: bool = False):
+        self.device = torch.device(device)
+        self.monoid = monoid_name
+        self.dtype = dtype
+        self.plain = plain
+        self.k, self.q, self.msg_tile = layout.k, layout.q, layout.msg_tile
+        self.png_src_local = torch.from_numpy(layout.png_src_local).to(
+            self.device)
+        self.png_valid = torch.from_numpy(
+            layout.png_src < layout.n_pad).to(self.device)
+        self.png_tile_part = torch.from_numpy(layout.png_tile_part).to(
+            self.device)
+
+    def __call__(self, x_flat, active_flat):
+        x = x_flat.to(self.dtype).reshape(self.k, self.q)
+        active = active_flat.to(torch.bool).reshape(self.k, self.q)
+        fn = ref_dc_gather if self.plain else dc_gather
+        return fn(x, active, self.png_src_local, self.png_valid,
+                  self.png_tile_part, k=self.k, q=self.q,
+                  msg_tile=self.msg_tile, monoid=self.monoid)
+
+
+class SpmvKernel(_TileGeometry):
+    """Partition-centric f32 SpMV bound to a layout: ``x_flat -> y_flat``
+    over ``[n_pad]``, 0 on destination partitions with no tiles.
+    ``weighted=None`` takes the layout's own."""
+
+    def __init__(self, layout, device, weighted=None, plain: bool = False):
+        super().__init__(layout, device)
+        self.plain = plain
+        self.weighted = layout.weighted if weighted is None else weighted
+        self.edge_src_local = torch.from_numpy(layout.edge_src_local).to(
+            self.device)
+        self.edge_valid = torch.from_numpy(
+            layout.edge_valid.astype(bool)).to(self.device)
+        self.edge_w = (torch.from_numpy(layout.edge_w).to(self.device)
+                       if self.weighted and layout.edge_w is not None
+                       else None)
+
+    def __call__(self, x_flat):
+        args = (x_flat.reshape(self.k, self.q), self.edge_src_local,
+                self.edge_dst_local, self.edge_valid, self.edge_w,
+                self.tile_dst_part, self.tile_src_part, self.tile_first)
+        weighted = self.edge_w is not None
+        if self.plain:
+            y = ref_spmv_block(*args, weighted=weighted, **self.geometry())
+        else:
+            y = spmv_block(*args, weighted=weighted,
+                           part_tile_off=self.part_tile_off,
+                           **self.geometry())
+        return torch.where(self.has_tiles, y, 0.0).reshape(-1)

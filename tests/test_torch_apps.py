@@ -134,3 +134,86 @@ def test_bfs_large_diameter_matches_reference():
     _assert_same(port["level"], ref["level"])
     _assert_same(port["parent"], ref["parent"])
     _assert_same_stats(port["stats"], ref["stats"])
+
+
+# ---- the composed DC path (REPRO_FUSED=0): scatter into the bins, gather ----
+
+@pytest.fixture
+def composed(monkeypatch):
+    """``REPRO_FUSED=0`` for both packages: engines built under it run the
+    composed DC path.  Calling the fixture's value with ``True`` turns the
+    fused path back on for the port's own fused run."""
+    monkeypatch.setenv("REPRO_FUSED", "0")
+
+    def fused(on: bool):
+        monkeypatch.setenv("REPRO_FUSED", "1" if on else "0")
+    return fused
+
+
+def _port_engine(TL, program, mode="hybrid"):
+    eng = rt.Engine(TL, program, mode=mode, device="cpu")
+    assert not eng.fused
+    return eng
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("mode", ["hybrid", "dc", "sc"])
+def test_composed_bfs_matches_reference(g_rmat, mode, backend, composed):
+    g, L, TL = g_rmat
+    src = int(np.argmax(g.out_degrees()))
+    ref = ref_apps.bfs(L, source=src, mode=mode, backend=backend)
+    port = rt.bfs(TL, source=src,
+                  engine=_port_engine(TL, rt.apps.bfs_program(), mode))
+    _assert_same(port["parent"], ref["parent"])
+    _assert_same(port["level"], ref["level"])
+    _assert_same_stats(port["stats"], ref["stats"])
+    composed(True)
+    fused = rt.bfs(TL, source=src, mode=mode, device="cpu")
+    _assert_same(port["parent"], fused["parent"])
+    _assert_same(port["level"], fused["level"])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("mode", ["hybrid", "dc"])
+def test_composed_sssp_matches_reference(g_weighted, mode, backend, composed):
+    g, L, TL = g_weighted
+    src = int(np.argmax(g.out_degrees()))
+    ref = ref_apps.sssp(L, source=src, mode=mode, backend=backend)
+    port = rt.sssp(TL, source=src,
+                   engine=_port_engine(TL, rt.apps.sssp_program(), mode))
+    _assert_same(port["dist"], ref["dist"])
+    _assert_same_stats(port["stats"], ref["stats"])
+    composed(True)
+    _assert_same(port["dist"],
+                 rt.sssp(TL, source=src, mode=mode, device="cpu")["dist"])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_composed_connected_components_matches_reference(g_sym, backend,
+                                                         composed):
+    g, L, TL = g_sym
+    ref = ref_apps.connected_components(L, backend=backend)
+    port = rt.connected_components(
+        TL, engine=_port_engine(TL, rt.apps.cc_program()))
+    _assert_same(port["label"], ref["label"])
+    _assert_same_stats(port["stats"], ref["stats"])
+    composed(True)
+    _assert_same(port["label"],
+                 rt.connected_components(TL, device="cpu")["label"])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("fused", [True, False])
+def test_composed_pagerank_matches_reference(g_rmat, fused, backend,
+                                             composed):
+    g, L, TL = g_rmat
+    ref = ref_apps.pagerank(L, iters=10, fused=fused, backend=backend)
+    port = rt.pagerank(TL, iters=10, fused=fused, engine=_port_engine(
+        TL, rt.apps.pagerank_program(TL.n), "dc"))
+    assert port["pr"].dtype == np.float32
+    np.testing.assert_allclose(port["pr"], ref["pr"], rtol=0, atol=1e-6)
+    _assert_same_stats(port["stats"], ref["stats"])
+    composed(True)
+    np.testing.assert_allclose(
+        port["pr"], rt.pagerank(TL, iters=10, fused=fused, device="cpu")["pr"],
+        rtol=0, atol=1e-6)

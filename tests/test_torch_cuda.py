@@ -13,13 +13,19 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.graph import build_layout, rmat, symmetrize
+from repro_torch.graph import build_layout, from_edges, rmat, symmetrize
 from repro_torch.kernels import _build
+from repro_torch.kernels.dc_gather import dc_gather_cuda, ref_dc_gather
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import MAX_CHUNK, add_weight
-from repro_torch.kernels.ops import FusedDCKernel
+from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
+                                     ScatterKernel, SpmvKernel)
+from repro_torch.kernels.segment_combine import (ref_segment_combine,
+                                                 segment_combine_cuda)
 
 pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(1)
 
 MONOIDS = ("add", "min", "max")
 DTYPES = {"float32": torch.float32, "int32": torch.int32,
@@ -72,9 +78,13 @@ def test_segment_fold_kernel_matches_plain(dev, monoid, dtype, ns):
 def layouts():
     g = rmat(11, 8, seed=3, weighted=True)
     wide = rmat(17, 2, seed=4)
+    src = np.repeat(np.arange(g.n), g.out_degrees())
+    # every edge lands in the lower half: partitions 4..7 have no tiles
+    half = from_edges(src, g.indices % (g.n // 2), n=g.n, dedup=True)
     return {"rmat": build_layout(g, k=8, edge_tile=64, msg_tile=32),
             # q = 65536 > MAX_CHUNK: each partition spans two blocks
-            "wide": build_layout(wide, k=2, edge_tile=64, msg_tile=32)}
+            "wide": build_layout(wide, k=2, edge_tile=64, msg_tile=32),
+            "half": build_layout(half, k=8, edge_tile=64, msg_tile=32)}
 
 
 @pytest.mark.parametrize("layout", ["rmat", "wide"])
@@ -144,3 +154,139 @@ def test_apps_on_the_card_match_the_cpu(dev):
             rt.pagerank(L, fused=fused)["pr"],
             rt.pagerank(L, fused=fused, device="cpu")["pr"], rtol=0,
             atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["rmat", "wide"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_dc_gather_kernel_matches_plain(dev, layouts, monoid, dtype, layout):
+    L = layouts[layout]
+    rng = np.random.default_rng(4)
+    x = _payload(rng, L.n_pad, DTYPES[dtype], dev)
+    active = torch.from_numpy(rng.random(L.n_pad) < 0.5).to(dev)
+    kern = ScatterKernel(L, monoid, DTYPES[dtype], dev)
+    plain = ScatterKernel(L, monoid, DTYPES[dtype], dev, plain=True)
+    before = _build.DC_GATHER.launches
+    got = kern(x, active)
+    torch.cuda.synchronize()
+    assert _build.DC_GATHER.launches == before + 1
+    _assert_bit_exact((got,), (plain(x, active),))
+
+
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_segment_combine_kernel_matches_plain(dev, layouts, monoid, dtype,
+                                              layout):
+    """Random ``part_active`` (tiles skipped); ``half`` has partitions with
+    no tiles, ``wide`` partitions wider than one block."""
+    L = layouts[layout]
+    rng = np.random.default_rng(5)
+    vals = _payload(rng, L.num_edges, DTYPES[dtype], dev)
+    valid = torch.from_numpy(L.edge_valid
+                             & (rng.random(L.num_edges) < 0.7)).to(dev)
+    part_active = torch.from_numpy(rng.random(L.k) < 0.6).to(dev)
+    kern = GatherKernel(L, monoid, DTYPES[dtype], dev)
+    plain = GatherKernel(L, monoid, DTYPES[dtype], dev, plain=True)
+    before = _build.SEGMENT_COMBINE.launches
+    got = kern(vals, valid, part_active)
+    torch.cuda.synchronize()
+    assert _build.SEGMENT_COMBINE.launches == before + 1
+    _assert_bit_exact(got, plain(vals, valid, part_active))
+    # the raw kernel writes a partition with no tiles as the identity
+    raw = segment_combine_cuda(
+        vals, valid, kern.edge_dst_local, kern.tile_src_part,
+        kern.part_tile_off, part_active, k=L.k, q=L.q, edge_tile=L.edge_tile,
+        monoid=monoid)
+    _assert_bit_exact(raw, ref_segment_combine(
+        vals, valid, kern.edge_dst_local, kern.tile_dst_part,
+        kern.tile_src_part, kern.tile_first, part_active, k=L.k, q=L.q,
+        edge_tile=L.edge_tile, monoid=monoid))
+
+
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmv_block_kernel_matches_plain(dev, layouts, weighted, layout):
+    L = layouts[layout]
+    rng = np.random.default_rng(6)
+    x = _payload(rng, L.n_pad, torch.float32, dev)
+    kern = SpmvKernel(L, dev, weighted=weighted)
+    plain = SpmvKernel(L, dev, weighted=weighted, plain=True)
+    if weighted:                  # integer weights: exact in any order
+        kern.edge_w = plain.edge_w = _payload(rng, L.num_edges,
+                                              torch.float32, dev)
+    before = _build.SPMV_BLOCK.launches
+    got = kern(x)
+    torch.cuda.synchronize()
+    assert _build.SPMV_BLOCK.launches == before + 1
+    _assert_bit_exact((got,), (plain(x),))
+
+
+@pytest.mark.parametrize("layout", ["rmat", "half"])
+def test_unweighted_spmv_equals_fused_add(dev, layouts, layout):
+    """``y = A^T x`` two ways on the card: the SpMV kernel, and the fused
+    DC kernel's add over a table that is all valid but its sentinel."""
+    L = layouts[layout]
+    x = _payload(np.random.default_rng(7), L.n_pad + 1, torch.float32, dev)
+    table_valid = torch.ones(L.n_pad + 1, dtype=torch.bool, device=dev)
+    table_valid[-1] = False
+    acc, _ = FusedDCKernel(L, "add", torch.float32, dev)(x, table_valid)
+    y = SpmvKernel(L, dev, weighted=False)(x[:L.n_pad])
+    _assert_bit_exact((y,), (acc[:L.n_pad],))
+
+
+def test_new_wrappers_check_their_inputs(dev, layouts):
+    L = layouts["rmat"]
+    kern = GatherKernel(L, "min", torch.float32, dev)
+    vals = torch.zeros(L.num_edges, device=dev)
+    valid = torch.ones(L.num_edges, dtype=torch.bool, device=dev)
+    active = torch.ones(L.k, dtype=torch.bool, device=dev)
+    args = (kern.edge_dst_local, kern.tile_src_part, kern.part_tile_off)
+    geom = dict(k=L.k, q=L.q, edge_tile=L.edge_tile, monoid="min")
+    with pytest.raises(ValueError):
+        segment_combine_cuda(vals[:-1], valid, *args, active, **geom)
+    with pytest.raises(TypeError):
+        segment_combine_cuda(vals, valid.to(torch.int32), *args, active,
+                             **geom)
+    x = torch.zeros((L.k, L.q), device=dev)
+    sk = ScatterKernel(L, "min", torch.float32, dev)
+    with pytest.raises(ValueError):
+        dc_gather_cuda(x, torch.ones_like(x, dtype=torch.bool),
+                       sk.png_src_local, sk.png_valid, sk.png_tile_part,
+                       k=L.k, q=L.q, msg_tile=L.msg_tile + 1)
+    with pytest.raises(ValueError):
+        ref_dc_gather(x, x, sk.png_src_local, sk.png_valid, sk.png_tile_part,
+                      k=L.k, q=L.q, msg_tile=L.msg_tile, monoid="nope")
+
+
+def test_composed_apps_on_the_card_match_the_cpu(dev, monkeypatch):
+    """``REPRO_FUSED=0``: the composed DC path on the card against the CPU,
+    and against the fused path on the card."""
+    g = rmat(10, 8, seed=5, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    S = build_layout(symmetrize(g), k=8, edge_tile=64, msg_tile=32)
+    src = int(np.argmax(g.out_degrees()))
+    fused = {"bfs": rt.bfs(L, src), "sssp": rt.sssp(L, src),
+             "cc": rt.connected_components(S), "pr": rt.pagerank(L)}
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    before = _build.DC_GATHER.launches, _build.SEGMENT_COMBINE.launches
+    for mode in ("hybrid", "dc"):
+        a, b = rt.bfs(L, src, mode=mode), rt.bfs(L, src, mode=mode,
+                                                 device="cpu")
+        assert np.array_equal(a["level"], b["level"])
+        assert np.array_equal(a["parent"], b["parent"])
+        a, b = rt.sssp(L, src, mode=mode), rt.sssp(L, src, mode=mode,
+                                                   device="cpu")
+        assert np.array_equal(a["dist"], b["dist"])
+    assert _build.DC_GATHER.launches > before[0]
+    assert _build.SEGMENT_COMBINE.launches > before[1]
+    assert np.array_equal(rt.bfs(L, src)["parent"], fused["bfs"]["parent"])
+    assert np.array_equal(rt.sssp(L, src)["dist"], fused["sssp"]["dist"])
+    cc = rt.connected_components(S)["label"]
+    assert np.array_equal(
+        cc, rt.connected_components(S, device="cpu")["label"])
+    assert np.array_equal(cc, fused["cc"]["label"])
+    pr = rt.pagerank(L)["pr"]
+    np.testing.assert_allclose(pr, rt.pagerank(L, device="cpu")["pr"],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(pr, fused["pr"]["pr"], rtol=0, atol=1e-6)

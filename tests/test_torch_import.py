@@ -12,7 +12,11 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.backend import tuning
 from repro_torch.graph import build_layout, rmat
+from repro_torch.interop import state_to_torch, to_torch
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -27,7 +31,8 @@ def _submodules():
 
 def test_import_leaves_jax_unloaded():
     mods = _submodules()
-    assert "repro_torch.core.engine" in mods
+    assert {"repro_torch.core.engine", "repro_torch.backend.tuning",
+            "repro_torch.kernels.segment_combine"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {['repro_torch'] + mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -51,7 +56,8 @@ def test_source_imports_neither_jax_nor_reference(path):
 
 
 @pytest.mark.parametrize("entry", ["engine", "bfs", "cc", "sssp",
-                                   "pagerank"])
+                                   "pagerank", "to_torch", "state_to_torch",
+                                   "tuned_layout"])
 def test_default_device_raises_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = rmat(6, 4, seed=0, weighted=True)
@@ -62,6 +68,9 @@ def test_default_device_raises_without_a_card(entry, monkeypatch):
         "cc": lambda: repro_torch.connected_components(L),
         "sssp": lambda: repro_torch.sssp(L, source=0),
         "pagerank": lambda: repro_torch.pagerank(L),
+        "to_torch": lambda: to_torch(np.arange(3)),
+        "state_to_torch": lambda: state_to_torch({"x": np.arange(3)}),
+        "tuned_layout": lambda: tuning.tuned_layout(g, k=4),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -53,7 +53,7 @@ def _assert_bit_exact(got, want):
 
 
 def _port(*arrays):
-    return [to_torch(a) for a in arrays]
+    return [to_torch(a, device="cpu") for a in arrays]
 
 
 @settings(max_examples=30, deadline=None, derandomize=True)
@@ -163,7 +163,7 @@ def test_fused_add_weight_matches_reference(data):
     w = payload(rng, idx.shape[0], "float32")
     got = fused_scatter_fold(*_port(table, tvalid, idx, evalid, dst), ns,
                              monoid="min", apply_weight=add_weight,
-                             w=to_torch(w))
+                             w=to_torch(w, device="cpu"))
     _assert_bit_exact(got, ref_fused_step.fused_scatter_fold(
         table, tvalid, idx, evalid, dst, ns, monoid="min", edge_tile=8,
         fold_q=7, interpret=True, apply_weight=_relax, w=w))
@@ -200,14 +200,15 @@ def test_monoid_identity_and_combine_match_reference(name, dtype):
     b = rng.integers(max(info.min, -2**31), info.max, 64, dtype=np.int64)
     a, b = a.astype(dtype), b.astype(dtype)
     want = np.asarray(ref.combine(jnp.asarray(a), jnp.asarray(b)))
-    got = port.combine(to_torch(a), to_torch(b)).numpy()
+    got = port.combine(to_torch(a, device="cpu"),
+                       to_torch(b, device="cpu")).numpy()
     assert got.dtype == want.dtype
     assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_uint32_where_keeps_values_above_2_to_the_31():
-    a = to_torch(np.array([0, 2**31, 2**32 - 1], np.uint32))
-    b = to_torch(np.array([5, 6, 7], np.uint32))
+    a = to_torch(np.array([0, 2**31, 2**32 - 1], np.uint32), device="cpu")
+    b = to_torch(np.array([5, 6, 7], np.uint32), device="cpu")
     got = TM.where(torch.tensor([True, True, False]), a, b)
     assert got.dtype == torch.uint32
     assert got.numpy().tolist() == [0, 2**31, 7]
@@ -219,7 +220,7 @@ def test_state_to_torch_keeps_dtypes():
              "dist": np.full(5, np.inf, np.float32),
              "parent": jnp.full(5, -1, jnp.int32),
              "active": np.ones(5, bool)}
-    got = state_to_torch(state)
+    got = state_to_torch(state, device="cpu")
     assert {k: v.dtype for k, v in got.items()} == {
         "label": torch.uint32, "dist": torch.float32,
         "parent": torch.int32, "active": torch.bool}
