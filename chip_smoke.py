@@ -14,13 +14,23 @@ Phases, in order; each prints lines that start with its name:
            128 blocks for 132 SMs (paper §3.1 with this card's constants).
   kernels  each CUDA kernel against its plain PyTorch version on the card at
            the main path's shapes, every monoid x dtype on integer-valued
-           payloads, bit-exact; median times from CUDA events beside the
-           bytes bound at 3.35 TB/s, the plain version's time, and where one
-           PyTorch call computes the same function, that call's time (a
-           yardstick the port never calls): ``Tensor.scatter_reduce_`` for
-           the folds, a ``torch.sparse_csr_tensor`` product for the SpMV.
-           Then the composed DC step of PageRank timed whole and by part,
-           its plain-torch slot gather included.
+           payloads, bit-exact; times beside the bytes bound at 3.35 TB/s,
+           the plain version's time, and where one PyTorch call computes the
+           same function, that call's time (a yardstick the port never
+           calls): ``Tensor.scatter_reduce_`` for the folds (and, for the
+           segment fold, ``torch.full`` + ``scatter_reduce_`` into a fresh
+           accumulator, the same work as the kernel's), a
+           ``torch.sparse_csr_tensor`` product for the SpMV.  Each kernel
+           time is given three ways: ``ms``, the median of single calls
+           each between two CUDA events; ``device_ms``, CUDA events around
+           a run of launches queued behind a ``torch.cuda._sleep``, so the
+           card runs them back to back, over the count (device time alone);
+           ``call_ms``, the host clock around a run of calls ending in a
+           synchronize, over the count (host included).  The segment fold
+           is timed on the main path's SC stream into n_pad + 1 and into
+           4096 segments, and at the tuner's ``fold2`` shape.  Then the
+           composed DC step of PageRank timed whole and by part, its
+           plain-torch slot gather included.
   apps     BFS and SSSP from the highest-degree vertex, CC on the
            symmetrized graph and PageRank (10 iterations through
            ``run_fused``, and 10 through ``run`` for per-iteration times),
@@ -91,6 +101,49 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls queued
+    behind a ``torch.cuda._sleep`` that holds the stream for twice the
+    host's time to enqueue them, so the card runs them back to back."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)   # ~2e9 cycles/s
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, reps: int) -> float:
+    """Time of one call, host included: the host clock around ``reps``
+    calls ending in a synchronize, over the count."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """``ms`` (median single call between CUDA events), ``device_ms`` and
+    ``call_ms`` of one kernel wrapper call."""
+    return {"ms": median_ms(fn, reps), "device_ms": device_ms(fn, reps),
+            "call_ms": call_ms(fn, reps)}
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -226,9 +279,10 @@ def main() -> int:
     # timed at PageRank's step: f32 add, every source live
     pr_table = payload(ns, torch.float32)
     all_valid = torch.ones(ns, dtype=torch.bool, device=dev)
-    fused_ms = median_ms(lambda: fused_scatter_fold(
+    fused_t = kernel_times(lambda: fused_scatter_fold(
         pr_table, all_valid, *edges, ns, monoid="add",
         part_off=kern.part_off, q=L.q), 20)
+    fused_ms = fused_t["ms"]
     fused_plain_ms = median_ms(lambda: ref_fused_scatter_fold(
         M.add(torch.float32), pr_table, all_valid, *edges, ns), 3)
     ne = L.num_edges
@@ -236,7 +290,7 @@ def main() -> int:
         + ns * (4 + 1)
     report["fused_dc"] = {
         "shape": {"table": ns, "edges": ne, "k": L.k, "q": L.q},
-        "case": "add float32, all sources live", "ms": fused_ms,
+        "case": "add float32, all sources live", **fused_t,
         "plain_ms": fused_plain_ms, "bytes": fused_bytes,
         "bound_ms": bound_ms(fused_bytes), "max_abs_err": fused_err,
         "library_ms": None}
@@ -269,36 +323,61 @@ def main() -> int:
     _, _, dst = bfs_eng.sc_stream(vid, torch.from_numpy(sc_mask).to(dev), be)
     del bfs_eng
     valid = torch.rand(be, generator=gen, device=dev) < 0.9
+    # and the tuner's fold2 row: the layout's edge count of sorted ids into
+    # FOLD_CAP * 3/2 + 1 segments, invalid edges at the last (tuning.py)
+    ns2 = tuning.FOLD_CAP + tuning.FOLD_CAP // 2 + 1
+    ev = torch.from_numpy(L.edge_valid.astype(bool)).to(dev)
+    ids2 = torch.sort(torch.randint(0, ns2 - 1, (L.num_edges,),
+                                    generator=gen, device=dev)).values
+    ids2 = torch.where(ev, ids2, ns2 - 1).to(torch.int32)
     fold_err, fold_rows = 0.0, {}
-    for fold_ns, ids in ((4096, dst % 4096), (ns, dst)):
+    for key, fold_ns, fvalid, ids in (
+            ("ids_mod_4096", 4096, valid, dst % 4096),
+            ("n_pad_plus_1", ns, valid, dst),
+            ("fold2", ns2, ev, ids2)):
+        m = ids.shape[0]
         for monoid in MONOIDS:
             for dname, dtype in dtypes.items():
-                vals = payload(be, dtype)
+                vals = payload(m, dtype)
                 fold_err = max(fold_err, max_abs_err(
-                    blocked_segment_fold(vals, valid, ids, fold_ns,
+                    blocked_segment_fold(vals, fvalid, ids, fold_ns,
                                          monoid=monoid),
-                    segment_fold(vals, valid, ids, fold_ns, monoid),
+                    segment_fold(vals, fvalid, ids, fold_ns, monoid),
                     f"segment_fold {monoid} {dname} ns={fold_ns}"))
         # timed at SSSP's fold: f32 min
-        vals = payload(be, torch.float32)
-        masked = torch.where(valid, vals, float("inf"))
+        vals = payload(m, torch.float32)
+        masked = torch.where(fvalid, vals, float("inf"))
         ids64 = ids.to(torch.int64)
         lib_acc = torch.full((fold_ns,), float("inf"), device=dev)
-        fold_bytes = be * (4 + 1 + 4) + fold_ns * (4 + 1)
-        fold_rows[fold_ns] = {
-            "shape": {"messages": be, "num_segments": fold_ns,
-                      "bfs_superstep": fold_iter},
+
+        def library():
+            return lib_acc.scatter_reduce_(0, ids64, masked, "amin",
+                                           include_self=True)
+
+        def library_fill():
+            return torch.full((fold_ns,), float("inf"),
+                              device=dev).scatter_reduce_(
+                0, ids64, masked, "amin", include_self=True)
+
+        fold_bytes = m * (4 + 1 + 4) + fold_ns * (4 + 1)
+        fold_rows[key] = {
+            "shape": {"messages": m, "num_segments": fold_ns},
             "case": "min float32",
-            "ms": median_ms(lambda: blocked_segment_fold(
-                vals, valid, ids, fold_ns, monoid="min"), 20),
+            **kernel_times(lambda: blocked_segment_fold(
+                vals, fvalid, ids, fold_ns, monoid="min"), 20),
             "plain_ms": median_ms(lambda: segment_fold(
-                vals, valid, ids, fold_ns, "min"), 3),
-            "library_ms": median_ms(lambda: lib_acc.scatter_reduce_(
-                0, ids64, masked, "amin", include_self=True), 20),
+                vals, fvalid, ids, fold_ns, "min"), 3),
+            "library_ms": median_ms(library, 20),
+            "library_device_ms": device_ms(library, 20),
+            "library_fill_ms": median_ms(library_fill, 20),
+            "library_fill_device_ms": device_ms(library_fill, 20),
             "bytes": fold_bytes, "bound_ms": bound_ms(fold_bytes)}
-        say("kernels", name="segment_fold", **fold_rows[fold_ns])
+        if key != "fold2":
+            fold_rows[key]["shape"]["bfs_superstep"] = fold_iter
+        say("kernels", name="segment_fold", **fold_rows[key])
+    del ev, ids2, vals, masked, ids64, lib_acc
     report["segment_fold"] = {"max_abs_err": fold_err,
-                              "by_num_segments": fold_rows}
+                              "by_stream": fold_rows}
 
     # The composed DC path's kernels, at the shapes of its PageRank step:
     # every partition in DC mode, every source live.
@@ -324,7 +403,7 @@ def main() -> int:
         "shape": {"slots": nm, "slot_tiles": nm // L.msg_tile, "k": k,
                   "q": q},
         "case": "add float32, all sources live", "max_abs_err": gather_err,
-        "ms": median_ms(lambda: dc_gather(x, act, *scat, **geo), 20),
+        **kernel_times(lambda: dc_gather(x, act, *scat, **geo), 20),
         "plain_ms": median_ms(lambda: ref_dc_gather(x, act, *scat, **geo),
                               3),
         "library_ms": None, "bytes": gather_bytes,
@@ -361,7 +440,7 @@ def main() -> int:
         "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q},
         "case": "add float32, every source partition active",
         "max_abs_err": combine_err,
-        "ms": median_ms(lambda: segment_combine(
+        **kernel_times(lambda: segment_combine(
             vals, edge_valid, *tiles, all_parts,
             part_tile_off=gk.part_tile_off, **geo), 20),
         "plain_ms": median_ms(lambda: ref_segment_combine(
@@ -394,7 +473,7 @@ def main() -> int:
         spmv_bytes = ne * (4 + 4 + 1 + (4 if weighted else 0)) + nt * 4 \
             + (k + 1) * 8 + 2 * n_pad * 4
         rows[weighted] = {
-            "ms": median_ms(lambda: spmv_block(
+            **kernel_times(lambda: spmv_block(
                 x, *spmv_args, w, *spmv_tiles, weighted=weighted,
                 part_tile_off=vk.part_tile_off, **geo), 20),
             "plain_ms": median_ms(lambda: ref_spmv_block(
@@ -414,6 +493,7 @@ def main() -> int:
     del coo, src_np, valid_np
     xv = x.reshape(-1, 1)
     rows[True]["library_ms"] = median_ms(lambda: at_csr @ xv, 20)
+    rows[True]["library_device_ms"] = device_ms(lambda: at_csr @ xv, 20)
     rows[False]["library_ms"] = None
     del at_csr
     report["spmv_block"] = {
@@ -630,6 +710,7 @@ def main() -> int:
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": launches_n, "max_abs_err": err, "ms": rec["ms"],
+                "device_ms": rec["device_ms"], "call_ms": rec["call_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": bound,
                 "bound_by": "bytes", "library_ms": rec["library_ms"]}
 
@@ -638,8 +719,8 @@ def main() -> int:
             launches["fused_dc"], fused_err, report["fused_dc"],
             report["fused_dc"]["bound_ms"]),
         row("segment_fold", "segment_fold.cu", "fold_two_level.py:158",
-            launches["segment_fold"], fold_err, fold_rows[ns],
-            fold_rows[ns]["bound_ms"]),
+            launches["segment_fold"], fold_err, fold_rows["n_pad_plus_1"],
+            fold_rows["n_pad_plus_1"]["bound_ms"]),
         row("dc_gather", "dc_gather.cu", "dc_gather.py:62",
             composed_launches["dc_gather"], gather_err, report["dc_gather"],
             report["dc_gather"]["bound_ms"]),

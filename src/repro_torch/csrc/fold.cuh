@@ -1,8 +1,9 @@
-// Monoid folds shared by fused_dc.cu and segment_fold.cu.
+// Monoid folds shared by fused_dc.cu, segment_combine.cu and segment_fold.cu.
 //
 // A fold is one of {add, min, max} over one of {float, int, unsigned}, the
 // combinations the Pallas kernels of the reference lower.  Each fold into
-// memory is one atomic, so the same code serves shared and global memory.
+// memory is one atomic, so the same code serves shared and global memory;
+// combine() folds two values in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +58,24 @@ __device__ __forceinline__ void fold_into(T* addr, T v) {
     atomicMin(addr, v);
   } else {
     atomicMax(addr, v);
+  }
+}
+
+// The monoid's combine in registers, ordering floats as fold_into does
+// (through their bits, so -0.0 is less than +0.0).
+template <int M, typename T>
+__device__ __forceinline__ T combine(T a, T b) {
+  if constexpr (M == MONOID_ADD) {
+    return a + b;
+  } else if constexpr (std::is_same_v<T, float>) {
+    const int ba = __float_as_int(a), bb = __float_as_int(b);
+    const int ka = ba >= 0 ? ba : ba ^ 0x7fffffff;
+    const int kb = bb >= 0 ? bb : bb ^ 0x7fffffff;
+    return (M == MONOID_MIN ? ka <= kb : ka >= kb) ? a : b;
+  } else if constexpr (M == MONOID_MIN) {
+    return a < b ? a : b;
+  } else {
+    return a > b ? a : b;
   }
 }
 

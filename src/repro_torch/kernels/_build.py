@@ -62,6 +62,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+        self._fn = None          # the bound C entry, once loaded
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
@@ -104,14 +105,15 @@ class CudaKernel:
                 fn.argtypes, fn.restype = list(self.argtypes), ctypes.c_int
                 err = getattr(lib, f"{self.name}_error_string")
                 err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-                self._lib = lib
+                self._lib, self._fn = lib, fn
             return self._lib
 
     def launch(self, *args) -> None:
-        lib = self.lib()
-        rc = getattr(lib, self.name)(*args)
+        if self._fn is None:
+            self.lib()
+        rc = self._fn(*args)
         if rc != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            msg = getattr(self._lib, f"{self.name}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} "
                                f"({msg})")
         self.launches += 1
@@ -142,6 +144,7 @@ SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
     P, P, P, P, P,      # x, src_local, dst_local, valid, w
     P, P,               # tile_src_part, part_tile_off
     I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
+    I32,                # ring: -1 where the copies' rules allow, 1 or 0
     P, P))              # y, stream
 KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK)
 
@@ -192,5 +195,10 @@ def check_cuda(t, name: str, dtype=None, shape=None, device=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_handle(device=None) -> int:
+    """The raw handle of the current stream on ``device`` (default: the
+    current device), without building a ``torch.cuda.Stream``."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

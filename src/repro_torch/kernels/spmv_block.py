@@ -15,7 +15,11 @@ Two versions, chosen by the device of the tensors:
   * :func:`spmv_block_cuda`, the CUDA kernel ``csrc/spmv_block.cu`` (CUDA
     tensors), one thread block per destination partition with ``y`` in
     shared memory, reading ``part_tile_off`` as ``segment_combine_cuda``
-    does.
+    does.  The partition's edge tiles stream through a ring of
+    shared-memory stages filled by asynchronous bulk copies
+    (``csrc/edge_stream.cuh``) where ``edge_tile`` is a multiple of 16 and
+    the edge arrays are 16-byte aligned, and are read with plain loads
+    otherwise.
 
 The reference sums by a one-hot matmul, where one non-finite product turns
 its whole partition into NaN; both versions here add each product into its
@@ -26,8 +30,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_step import MAX_CHUNK
 from .segment_combine import live_tiles
+
+# The widest slice of a partition one thread block holds: y (4 B an output)
+# beside the ring of edge stages in one block's shared memory
+# (``kMaxChunk`` in csrc/spmv_block.cu).
+MAX_CHUNK = 32768
 
 
 def ref_spmv_block(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
@@ -57,8 +65,12 @@ def ref_spmv_block(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
 
 def spmv_block_cuda(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
                     tile_src_part, part_tile_off, *, k: int, q: int,
-                    edge_tile: int, weighted: bool = False):
-    """Launch ``csrc/spmv_block.cu`` on the current stream."""
+                    edge_tile: int, weighted: bool = False, ring=None):
+    """Launch ``csrc/spmv_block.cu`` on the current stream.
+
+    ``ring`` None streams the tiles through the ring wherever its copies'
+    rules allow; True or False asks for the ring or the plain loads (True
+    raises where the rules are not met)."""
     nt, dev = tile_src_part.shape[0], x.device
     ne = nt * edge_tile
     _build.check_cuda(x, "x", torch.float32, (k, q))
@@ -80,8 +92,8 @@ def spmv_block_cuda(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
         x.data_ptr(), edge_src_local.data_ptr(), edge_dst_local.data_ptr(),
         edge_valid.data_ptr(), edge_w.data_ptr() if weighted else None,
         tile_src_part.data_ptr(), part_tile_off.data_ptr(), k, q, edge_tile,
-        min(q, MAX_CHUNK), int(weighted), y.data_ptr(),
-        _build.stream_handle())
+        min(q, MAX_CHUNK), int(weighted), -1 if ring is None else int(ring),
+        y.data_ptr(), _build.stream_handle(dev))
     return y
 
 

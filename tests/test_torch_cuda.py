@@ -16,12 +16,14 @@ import repro_torch as rt
 from repro_torch.graph import build_layout, from_edges, rmat, symmetrize
 from repro_torch.kernels import _build
 from repro_torch.kernels.dc_gather import dc_gather_cuda, ref_dc_gather
-from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
+from repro_torch.kernels.fold_block import (SHARED_MAX_SEGMENTS,
+                                            segment_fold, segment_fold_cuda)
 from repro_torch.kernels.fused_step import MAX_CHUNK, add_weight
 from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                      ScatterKernel, SpmvKernel)
 from repro_torch.kernels.segment_combine import (ref_segment_combine,
                                                  segment_combine_cuda)
+from repro_torch.kernels.spmv_block import ref_spmv_block, spmv_block_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -57,7 +59,11 @@ def _assert_bit_exact(got, want):
         assert torch.equal(g8, w8)
 
 
-@pytest.mark.parametrize("ns", [4096, 300_001])
+# both regimes of the CUDA fold (shared memory up to SHARED_MAX_SEGMENTS,
+# global atomics past it), the boundary on both sides, and a tiny count
+@pytest.mark.parametrize("ns", [7, 4096, SHARED_MAX_SEGMENTS - 1,
+                                SHARED_MAX_SEGMENTS, SHARED_MAX_SEGMENTS + 1,
+                                300_001])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("monoid", MONOIDS)
 def test_segment_fold_kernel_matches_plain(dev, monoid, dtype, ns):
@@ -74,6 +80,38 @@ def test_segment_fold_kernel_matches_plain(dev, monoid, dtype, ns):
     _assert_bit_exact(got, segment_fold(vals, valid, ids, ns, monoid))
 
 
+def _fold_stream(rng, case, n, ns, dtype, device):
+    """(vals, valid, ids) for one of the edge cases of the fold's stream."""
+    vals = _payload(rng, n, dtype, device)
+    valid = rng.random(n) < 0.8
+    ids = rng.integers(0, ns, n)
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "out_of_range":
+        ids = np.where(rng.random(n) < 0.5, rng.integers(-2**31, 0, n),
+                       rng.integers(ns, 2**31, n))
+    elif case == "sorted_runs":   # long runs of equal ids, as the tuner's
+        ids = np.sort(rng.integers(0, max(1, ns // 64), n))
+    return (vals, torch.from_numpy(valid).to(device),
+            torch.from_numpy(ids.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("case", ["empty", "all_invalid", "out_of_range",
+                                  "sorted_runs"])
+@pytest.mark.parametrize("ns", [4096, 300_001])
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_segment_fold_kernel_edge_streams(dev, monoid, ns, case):
+    """No messages, no valid message, no id in range, and a sorted stream
+    whose runs span many warps; in both regimes."""
+    rng = np.random.default_rng(8)
+    n = 0 if case == "empty" else 150_000
+    for dtype in DTYPES.values():
+        stream = _fold_stream(rng, case, n, ns, dtype, dev)
+        got = segment_fold_cuda(*stream, ns, monoid)
+        torch.cuda.synchronize()
+        _assert_bit_exact(got, segment_fold(*stream, ns, monoid))
+
+
 @pytest.fixture(scope="module")
 def layouts():
     g = rmat(11, 8, seed=3, weighted=True)
@@ -84,7 +122,34 @@ def layouts():
     return {"rmat": build_layout(g, k=8, edge_tile=64, msg_tile=32),
             # q = 65536 > MAX_CHUNK: each partition spans two blocks
             "wide": build_layout(wide, k=2, edge_tile=64, msg_tile=32),
-            "half": build_layout(half, k=8, edge_tile=64, msg_tile=32)}
+            "half": build_layout(half, k=8, edge_tile=64, msg_tile=32),
+            # the tuner's smallest and largest edge tiles
+            "et128": build_layout(g, k=8, edge_tile=128, msg_tile=64),
+            "et1024": build_layout(g, k=8, edge_tile=1024, msg_tile=512),
+            "sparse": build_layout(_sparse_graph(), k=8, edge_tile=64,
+                                   msg_tile=32),
+            # not a multiple of 16: the SpMV's plain-load path
+            "et24": build_layout(g, k=8, edge_tile=24, msg_tile=32)}
+
+
+def _sparse_graph():
+    """2048 vertices in 8 partitions of 256: partition 0 receives no edge,
+    partition 1 one tile's worth (at edge_tile 64), partition 2 37 tiles
+    from one source partition (more than two ring stages of 16 such tiles,
+    and not a multiple of 16), the rest a random sprinkle."""
+    rng = np.random.default_rng(9)
+    pairs = rng.choice(256 * 256, 36 * 64 + 5, replace=False)
+    src = np.concatenate([np.arange(10), 768 + pairs // 256,
+                          rng.integers(0, 2048, 3000)])
+    dst = np.concatenate([256 + np.arange(10), 512 + pairs % 256,
+                          rng.integers(768, 2048, 3000)])
+    return from_edges(src, dst, n=2048, dedup=True)
+
+
+def test_sparse_layout_has_the_intended_partitions(dev, layouts):
+    L = layouts["sparse"]
+    tiles = np.bincount(L.tile_dst_part, minlength=L.k)
+    assert (L.q, tiles[0], tiles[1], tiles[2]) == (256, 0, 1, 37)
 
 
 @pytest.mark.parametrize("layout", ["rmat", "wide"])
@@ -204,7 +269,8 @@ def test_segment_combine_kernel_matches_plain(dev, layouts, monoid, dtype,
         edge_tile=L.edge_tile, monoid=monoid))
 
 
-@pytest.mark.parametrize("layout", ["rmat", "wide", "half"])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "et128",
+                                    "et1024", "sparse", "et24"])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_spmv_block_kernel_matches_plain(dev, layouts, weighted, layout):
     L = layouts[layout]
@@ -220,6 +286,44 @@ def test_spmv_block_kernel_matches_plain(dev, layouts, weighted, layout):
     torch.cuda.synchronize()
     assert _build.SPMV_BLOCK.launches == before + 1
     _assert_bit_exact((got,), (plain(x),))
+
+
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "et128", "et1024",
+                                    "sparse"])
+def test_spmv_block_paths_skip_dead_tiles(dev, layouts, layout, ring):
+    """Both of the kernel's paths (the ring of bulk copies, and plain loads)
+    on tiles whose source partition lies outside [0, k): those add nothing,
+    and the ring skips them without breaking its runs of live tiles."""
+    L = layouts[layout]
+    rng = np.random.default_rng(10)
+    kern = SpmvKernel(L, dev, weighted=True)
+    w = _payload(rng, L.num_edges, torch.float32, dev)
+    x = _payload(rng, L.n_pad, torch.float32, dev).view(L.k, L.q)
+    tsp = L.tile_src_part.copy()
+    dead = rng.random(len(tsp)) < 0.3
+    tsp[dead] = np.where(rng.random(int(dead.sum())) < 0.5, -1, L.k)
+    tsp = torch.from_numpy(tsp).to(dev)
+    geo = dict(k=L.k, q=L.q, edge_tile=L.edge_tile, weighted=True)
+    args = (x, kern.edge_src_local, kern.edge_dst_local, kern.edge_valid, w)
+    before = _build.SPMV_BLOCK.launches
+    got = spmv_block_cuda(*args, tsp, kern.part_tile_off, ring=ring, **geo)
+    torch.cuda.synchronize()
+    assert _build.SPMV_BLOCK.launches == before + 1
+    want = ref_spmv_block(*args, kern.tile_dst_part, tsp, kern.tile_first,
+                          **geo)
+    _assert_bit_exact((got,), (want,))
+
+
+def test_spmv_block_ring_refuses_tiles_it_cannot_copy(dev, layouts):
+    L = layouts["et24"]
+    kern = SpmvKernel(L, dev, weighted=False)
+    x = torch.zeros((L.k, L.q), device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spmv_block_cuda(x, kern.edge_src_local, kern.edge_dst_local,
+                        kern.edge_valid, None, kern.tile_src_part,
+                        kern.part_tile_off, k=L.k, q=L.q,
+                        edge_tile=L.edge_tile, ring=True)
 
 
 @pytest.mark.parametrize("layout", ["rmat", "half"])

@@ -26,6 +26,9 @@ from repro.kernels import fold_two_level as ref_fold_two_level
 from repro.kernels import fused_step as ref_fused_step
 from repro_torch.core import monoid as TM
 from repro_torch.interop import state_to_torch, to_torch
+from repro_torch.kernels import fold_block as port_fold_block
+from repro_torch.kernels import spmv_block as port_spmv_block
+from repro_torch.kernels._build import CSRC
 from repro_torch.kernels.fold_block import blocked_segment_fold
 from repro_torch.kernels.fold_two_level import two_level_segment_fold
 from repro_torch.kernels.fused_step import add_weight, fused_scatter_fold
@@ -107,6 +110,41 @@ def test_fold_drops_invalid_and_out_of_range(fold, monoid, dtype):
                 interpret=True)
         _assert_bit_exact(port_fn(*_port(vals, valid, ids), ns,
                                   monoid=monoid), want)
+
+
+@pytest.mark.parametrize("monoid", ["add", "min", "max"])
+def test_two_level_fold_matches_reference_past_the_shared_regime(monoid):
+    """Past the CUDA fold's shared-memory regime the port's fold is still
+    the reference's two-level fold: a stream into
+    ``SHARED_MAX_SEGMENTS + 1`` segments, ids spread over all of them and
+    runs of equal ids included."""
+    ns = port_fold_block.SHARED_MAX_SEGMENTS + 1
+    rng = np.random.default_rng(12)
+    n = 256
+    vals = payload(rng, n, "int32")
+    ids = np.concatenate([rng.integers(-3, ns + 3, n - 64),
+                          np.full(64, ns - 1)]).astype(np.int32)
+    valid = jnp.asarray(rng.random(n) < 0.8)
+    ids = jnp.asarray(ids)
+    _assert_bit_exact(
+        two_level_segment_fold(*_port(vals, valid, ids), ns, monoid=monoid),
+        ref_fold_two_level.two_level_segment_fold(
+            vals, valid, ids, ns, monoid=monoid, fold_tile=128, fold_q=8192,
+            interpret=True))
+
+
+@pytest.mark.parametrize("name, source, constant", [
+    ("SHARED_MAX_SEGMENTS", "segment_fold.cu", "kSharedMaxSegments"),
+    ("MAX_CHUNK", "spmv_block.cu", "kMaxChunk")])
+def test_python_mirrors_of_kernel_constants(name, source, constant):
+    """The wrappers' copies of the CUDA sources' limits (the fold's regime
+    switch, the SpMV's widest block slice) match the sources."""
+    import re
+    text = (CSRC / source).read_text()
+    found = re.search(rf"constexpr [a-z ]+{constant} = (\d+);", text)
+    module = (port_fold_block if source == "segment_fold.cu"
+              else port_spmv_block)
+    assert found and int(found.group(1)) == getattr(module, name)
 
 
 @pytest.mark.parametrize("dtype", ["int32", "uint32"])
