@@ -26,7 +26,9 @@ Phases, in order; each prints lines that start with its name:
            a run of launches queued behind a ``torch.cuda._sleep``, so the
            card runs them back to back, over the count (device time alone);
            ``call_ms``, the host clock around a run of calls ending in a
-           synchronize, over the count (host included).  The segment fold
+           synchronize, over the count (host included); ``host_ms``, the
+           same clock stopped before the synchronize (the host's time to
+           issue a call).  The segment fold
            is timed on the main path's SC stream into n_pad + 1 and into
            4096 segments, and at the tuner's ``fold2`` shape.  Then the
            composed DC step of PageRank timed whole and by part, its
@@ -139,11 +141,25 @@ def call_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Host time of one call: the host clock around ``reps`` calls, stopped
+    before the synchronize, over the count (what issuing a call costs)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host_s * 1e3 / reps
+
+
 def kernel_times(fn, reps: int) -> dict:
-    """``ms`` (median single call between CUDA events), ``device_ms`` and
-    ``call_ms`` of one kernel wrapper call."""
+    """``ms`` (median single call between CUDA events), ``device_ms``,
+    ``call_ms`` and ``host_ms`` of one kernel wrapper call."""
     return {"ms": median_ms(fn, reps), "device_ms": device_ms(fn, reps),
-            "call_ms": call_ms(fn, reps)}
+            "call_ms": call_ms(fn, reps), "host_ms": host_ms(fn, reps)}
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -711,8 +727,9 @@ def main() -> int:
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": launches_n, "max_abs_err": err, "ms": rec["ms"],
                 "device_ms": rec["device_ms"], "call_ms": rec["call_ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": bound,
-                "bound_by": "bytes", "library_ms": rec["library_ms"]}
+                "host_ms": rec["host_ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": rec["library_ms"]}
 
     kernels = [
         row("fused_dc", "fused_dc.cu", "fused_step.py:192",

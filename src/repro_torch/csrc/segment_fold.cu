@@ -179,15 +179,14 @@ __global__ void __launch_bounds__(kThreads) segment_fold_kernel(
 template <int M, typename T, bool SHARED>
 cudaError_t launch(const void* vals, const void* valid, const void* ids,
                    long long n, long long ns, void* acc, void* touched,
-                   cudaStream_t stream) {
+                   int dev, cudaStream_t stream) {
   auto kernel = segment_fold_kernel<M, T, SHARED>;
   const size_t smem = SHARED ? (size_t)shared_bytes<T>(ns) : 0;
-  // Per host thread: (device, shared bytes) -> resident blocks on the card.
+  // Per host thread: (device, shared bytes) -> resident blocks on the card,
+  // asked of the runtime only when either changes.
   thread_local int cached_dev = -1, cached_blocks = 0, cached_sms = 0;
   thread_local size_t cached_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   if (dev != cached_dev || smem != cached_smem) {
     if (smem > 48 * 1024) {
       err = cudaFuncSetAttribute(
@@ -227,13 +226,17 @@ cudaError_t launch(const void* vals, const void* valid, const void* ids,
 
 }  // namespace
 
-// Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
-// acc and touched must be 16-byte aligned (fresh allocations are).
+// Returns 0 or the cudaError_t of the launch.  Pointers are device pointers
+// on the current device, whose index is `device` (given by the caller, so
+// that a call asks the runtime nothing but the launch); acc and touched must
+// be 16-byte aligned (fresh allocations are).
 extern "C" int segment_fold(const void* vals, const void* valid,
                             const void* ids, long long n,
                             long long num_segments, int monoid, int dtype,
-                            void* acc, void* touched, void* stream) {
-  if (n < 0 || num_segments <= 0) return (int)cudaErrorInvalidValue;
+                            void* acc, void* touched, int device,
+                            void* stream) {
+  if (n < 0 || num_segments <= 0 || device < 0)
+    return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(acc) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(touched) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
@@ -243,9 +246,9 @@ extern "C" int segment_fold(const void* vals, const void* valid,
     using T = typename C::type;
     if (num_segments <= kSharedMaxSegments)
       return launch<C::monoid, T, true>(vals, valid, ids, n, num_segments,
-                                        acc, touched, s);
+                                        acc, touched, device, s);
     return launch<C::monoid, T, false>(vals, valid, ids, n, num_segments, acc,
-                                       touched, s);
+                                       touched, device, s);
   });
 }
 

@@ -290,13 +290,11 @@ template <bool WEIGHTED>
 cudaError_t launch(const void* x, const void* src_local, const void* dst_local,
                    const void* valid, const void* w, const void* tile_src_part,
                    const void* part_tile_off, int k, int q, int edge_tile,
-                   int chunk, int ring, void* y, cudaStream_t stream) {
+                   int chunk, void* y, cudaStream_t stream) {
   const int n_chunks = (q + chunk - 1) / chunk;
   const void* arrays[4] = {src_local, dst_local, valid, w};
-  const bool streamable =
+  const bool use_ring =
       edge_stream::edge_stream_ok(arrays, WEIGHTED ? 4 : 3, edge_tile);
-  const bool use_ring = ring < 0 ? streamable : ring != 0;
-  if (use_ring && !streamable) return cudaErrorInvalidValue;
   auto kernel = use_ring ? spmv_ring_kernel<WEIGHTED>
                          : spmv_direct_kernel<WEIGHTED>;
   const int threads = use_ring ? kRingThreads : kDirectThreads;
@@ -320,24 +318,22 @@ cudaError_t launch(const void* x, const void* src_local, const void* dst_local,
 // Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
 // x and y hold k*q floats, part_tile_off k+1 entries; w is read only when
 // weighted is nonzero.  chunk (at most kMaxChunk) is the widest slice of a
-// partition one block holds.  ring: -1 streams through the ring where the
-// copies' rules allow and loads directly otherwise; 1 or 0 asks for one of
-// the two (1 fails where the rules are not met).
+// partition one block holds.  The tiles stream through the ring where the
+// copies' rules allow (edge_stream_ok), and are loaded directly otherwise.
 extern "C" int spmv_block(const void* x, const void* src_local,
                           const void* dst_local, const void* valid,
                           const void* w, const void* tile_src_part,
                           const void* part_tile_off, int k, int q,
-                          int edge_tile, int chunk, int weighted, int ring,
-                          void* y, void* stream) {
+                          int edge_tile, int chunk, int weighted, void* y,
+                          void* stream) {
   if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (weighted)
     return (int)launch<true>(x, src_local, dst_local, valid, w, tile_src_part,
-                             part_tile_off, k, q, edge_tile, chunk, ring, y,
-                             s);
+                             part_tile_off, k, q, edge_tile, chunk, y, s);
   return (int)launch<false>(x, src_local, dst_local, valid, w, tile_src_part,
-                            part_tile_off, k, q, edge_tile, chunk, ring, y, s);
+                            part_tile_off, k, q, edge_tile, chunk, y, s);
 }
 
 extern "C" const char* spmv_block_error_string(int code) {

@@ -128,7 +128,7 @@ FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
 SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
     P, P, P,            # vals, valid, ids
     I64, I64, I32, I32,  # n, num_segments, monoid, dtype
-    P, P, P))           # acc, touched, stream
+    P, P, I32, P))      # acc, touched, device index, stream
 DC_GATHER = CudaKernel("dc_gather", "dc_gather.cu", (
     P, P, P, P, P,      # x, active, png_src_local, png_valid, png_tile_part
     I64, I32, I32, I32,  # nm, k, q, msg_tile
@@ -144,7 +144,6 @@ SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
     P, P, P, P, P,      # x, src_local, dst_local, valid, w
     P, P,               # tile_src_part, part_tile_off
     I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
-    I32,                # ring: -1 where the copies' rules allow, 1 or 0
     P, P))              # y, stream
 KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK)
 
@@ -170,19 +169,19 @@ def reset_launch_counts() -> None:
 
 
 MONOID_CODES = {"add": 0, "min": 1, "max": 2}
+DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
 
 
 def dtype_code(dtype) -> int:
-    codes = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
-    if dtype not in codes:
+    if dtype not in DTYPE_CODES:
         raise TypeError(f"the CUDA kernels fold float32, int32 and uint32, "
                         f"not {dtype}")
-    return codes[dtype]
+    return DTYPE_CODES[dtype]
 
 
 def check_cuda(t, name: str, dtype=None, shape=None, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given kind."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -196,9 +195,12 @@ def check_cuda(t, name: str, dtype=None, shape=None, device=None) -> None:
 
 
 def stream_handle(device=None) -> int:
-    """The raw handle of the current stream on ``device`` (default: the
-    current device), without building a ``torch.cuda.Stream``."""
-    index = None if device is None else torch.device(device).index
+    """The raw handle of the current stream on ``device`` (a device or its
+    index; default: the current device), without building a
+    ``torch.cuda.Stream``."""
+    index = device
+    if device is not None and not isinstance(device, int):
+        index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)

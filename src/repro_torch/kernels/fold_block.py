@@ -11,9 +11,9 @@ Two versions of one function, chosen by the device of the tensors:
   * :func:`segment_fold_cuda`, the CUDA kernel ``csrc/segment_fold.cu``
     (CUDA tensors): one launch of a cooperative grid that fills the outputs
     and then folds, with each warp first combining runs of equal ids.  Up to
-    :data:`SHARED_MAX_SEGMENTS` segments each block folds its slice of the
-    stream in shared memory and merges the segments it touched with one
-    global atomic each; past that it folds with global atomics.
+    40,960 segments (``kSharedMaxSegments`` there) each block folds its
+    slice of the stream in shared memory and merges the segments it touched
+    with one global atomic each; past that it folds with global atomics.
 
 The TPU kernel's 4096-segment cap is a limit of VMEM, so on this port the
 same kernel folds any segment count and ``fold_tile`` is unused; the layout
@@ -31,10 +31,6 @@ from . import _build
 
 DEFAULT_FOLD_TILE = 256
 ENV_FOLD_TILE = "REPRO_FOLD_TILE"
-# The most segments whose acc and touched flags (5 B a segment) the CUDA
-# fold keeps in one block's shared memory (``kSharedMaxSegments`` in
-# csrc/segment_fold.cu, which the CPU tests check this against).
-SHARED_MAX_SEGMENTS = 40960
 
 
 def default_fold_tile() -> int:
@@ -72,7 +68,9 @@ def segment_fold(vals, valid, ids, num_segments: int, monoid: str = "add"):
 def segment_fold_cuda(vals, valid, ids, num_segments: int,
                       monoid: str = "add"):
     """Launch ``csrc/segment_fold.cu`` on the current stream (one launch:
-    the kernel fills the outputs itself)."""
+    the kernel fills the outputs itself).  The engine calls this once per SC
+    iteration, so it does no more on the host than check its inputs,
+    allocate the outputs and make the one C call."""
     ns = int(num_segments)
     n, dev = vals.shape[0], vals.device
     _build.check_cuda(vals, "vals", shape=(n,))
@@ -85,7 +83,8 @@ def segment_fold_cuda(vals, valid, ids, num_segments: int,
     _build.SEGMENT_FOLD.launch(
         vals.data_ptr(), valid.data_ptr(), ids.data_ptr(), n, ns,
         _build.MONOID_CODES[monoid], _build.dtype_code(vals.dtype),
-        acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
+        acc.data_ptr(), touched.data_ptr(), dev.index,
+        _build.stream_handle(dev.index))
     return acc, touched
 
 

@@ -65,12 +65,8 @@ def ref_spmv_block(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
 
 def spmv_block_cuda(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
                     tile_src_part, part_tile_off, *, k: int, q: int,
-                    edge_tile: int, weighted: bool = False, ring=None):
-    """Launch ``csrc/spmv_block.cu`` on the current stream.
-
-    ``ring`` None streams the tiles through the ring wherever its copies'
-    rules allow; True or False asks for the ring or the plain loads (True
-    raises where the rules are not met)."""
+                    edge_tile: int, weighted: bool = False):
+    """Launch ``csrc/spmv_block.cu`` on the current stream."""
     nt, dev = tile_src_part.shape[0], x.device
     ne = nt * edge_tile
     _build.check_cuda(x, "x", torch.float32, (k, q))
@@ -92,8 +88,8 @@ def spmv_block_cuda(x, edge_src_local, edge_dst_local, edge_valid, edge_w,
         x.data_ptr(), edge_src_local.data_ptr(), edge_dst_local.data_ptr(),
         edge_valid.data_ptr(), edge_w.data_ptr() if weighted else None,
         tile_src_part.data_ptr(), part_tile_off.data_ptr(), k, q, edge_tile,
-        min(q, MAX_CHUNK), int(weighted), -1 if ring is None else int(ring),
-        y.data_ptr(), _build.stream_handle(dev))
+        min(q, MAX_CHUNK), int(weighted), y.data_ptr(),
+        _build.stream_handle(dev))
     return y
 
 

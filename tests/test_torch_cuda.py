@@ -16,8 +16,7 @@ import repro_torch as rt
 from repro_torch.graph import build_layout, from_edges, rmat, symmetrize
 from repro_torch.kernels import _build
 from repro_torch.kernels.dc_gather import dc_gather_cuda, ref_dc_gather
-from repro_torch.kernels.fold_block import (SHARED_MAX_SEGMENTS,
-                                            segment_fold, segment_fold_cuda)
+from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import MAX_CHUNK, add_weight
 from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                      ScatterKernel, SpmvKernel)
@@ -59,11 +58,10 @@ def _assert_bit_exact(got, want):
         assert torch.equal(g8, w8)
 
 
-# both regimes of the CUDA fold (shared memory up to SHARED_MAX_SEGMENTS,
-# global atomics past it), the boundary on both sides, and a tiny count
-@pytest.mark.parametrize("ns", [7, 4096, SHARED_MAX_SEGMENTS - 1,
-                                SHARED_MAX_SEGMENTS, SHARED_MAX_SEGMENTS + 1,
-                                300_001])
+# both regimes of the CUDA fold (shared memory up to 40,960 segments, its
+# kSharedMaxSegments, global atomics past it), the boundary on both sides,
+# and a tiny count
+@pytest.mark.parametrize("ns", [7, 4096, 40959, 40960, 40961, 300_001])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("monoid", MONOIDS)
 def test_segment_fold_kernel_matches_plain(dev, monoid, dtype, ns):
@@ -288,13 +286,22 @@ def test_spmv_block_kernel_matches_plain(dev, layouts, weighted, layout):
     _assert_bit_exact((got,), (plain(x),))
 
 
-@pytest.mark.parametrize("ring", [True, False])
+def _unaligned(t):
+    """A copy of ``t`` that starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("layout", ["rmat", "wide", "et128", "et1024",
-                                    "sparse"])
-def test_spmv_block_paths_skip_dead_tiles(dev, layouts, layout, ring):
-    """Both of the kernel's paths (the ring of bulk copies, and plain loads)
-    on tiles whose source partition lies outside [0, k): those add nothing,
-    and the ring skips them without breaking its runs of live tiles."""
+                                    "sparse", "et24"])
+def test_spmv_block_paths_skip_dead_tiles(dev, layouts, layout, aligned):
+    """Tiles whose source partition lies outside [0, k) add nothing, on both
+    of the kernel's paths: the ring of bulk copies (edge_tile a multiple of
+    16 and 16-byte aligned edge arrays), which must skip them without
+    breaking its runs of live tiles, and plain loads (``et24``, or arrays
+    that start off a 16-byte boundary)."""
     L = layouts[layout]
     rng = np.random.default_rng(10)
     kern = SpmvKernel(L, dev, weighted=True)
@@ -306,24 +313,15 @@ def test_spmv_block_paths_skip_dead_tiles(dev, layouts, layout, ring):
     tsp = torch.from_numpy(tsp).to(dev)
     geo = dict(k=L.k, q=L.q, edge_tile=L.edge_tile, weighted=True)
     args = (x, kern.edge_src_local, kern.edge_dst_local, kern.edge_valid, w)
+    if not aligned:
+        args = (x, *(_unaligned(a) for a in args[1:]))
     before = _build.SPMV_BLOCK.launches
-    got = spmv_block_cuda(*args, tsp, kern.part_tile_off, ring=ring, **geo)
+    got = spmv_block_cuda(*args, tsp, kern.part_tile_off, **geo)
     torch.cuda.synchronize()
     assert _build.SPMV_BLOCK.launches == before + 1
     want = ref_spmv_block(*args, kern.tile_dst_part, tsp, kern.tile_first,
                           **geo)
     _assert_bit_exact((got,), (want,))
-
-
-def test_spmv_block_ring_refuses_tiles_it_cannot_copy(dev, layouts):
-    L = layouts["et24"]
-    kern = SpmvKernel(L, dev, weighted=False)
-    x = torch.zeros((L.k, L.q), device=dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        spmv_block_cuda(x, kern.edge_src_local, kern.edge_dst_local,
-                        kern.edge_valid, None, kern.tile_src_part,
-                        kern.part_tile_off, k=L.k, q=L.q,
-                        edge_tile=L.edge_tile, ring=True)
 
 
 @pytest.mark.parametrize("layout", ["rmat", "half"])

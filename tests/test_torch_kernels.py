@@ -26,12 +26,13 @@ from repro.kernels import fold_two_level as ref_fold_two_level
 from repro.kernels import fused_step as ref_fused_step
 from repro_torch.core import monoid as TM
 from repro_torch.interop import state_to_torch, to_torch
-from repro_torch.kernels import fold_block as port_fold_block
 from repro_torch.kernels import spmv_block as port_spmv_block
 from repro_torch.kernels._build import CSRC
-from repro_torch.kernels.fold_block import blocked_segment_fold
+from repro_torch.kernels.fold_block import (blocked_segment_fold,
+                                            segment_fold_cuda)
 from repro_torch.kernels.fold_two_level import two_level_segment_fold
 from repro_torch.kernels.fused_step import add_weight, fused_scatter_fold
+from repro_torch.kernels.spmv_block import spmv_block_cuda
 
 torch.set_num_threads(1)
 
@@ -115,10 +116,10 @@ def test_fold_drops_invalid_and_out_of_range(fold, monoid, dtype):
 @pytest.mark.parametrize("monoid", ["add", "min", "max"])
 def test_two_level_fold_matches_reference_past_the_shared_regime(monoid):
     """Past the CUDA fold's shared-memory regime the port's fold is still
-    the reference's two-level fold: a stream into
-    ``SHARED_MAX_SEGMENTS + 1`` segments, ids spread over all of them and
-    runs of equal ids included."""
-    ns = port_fold_block.SHARED_MAX_SEGMENTS + 1
+    the reference's two-level fold: a stream into 40,961 segments (one past
+    ``kSharedMaxSegments`` in csrc/segment_fold.cu), ids spread over all of
+    them and runs of equal ids included."""
+    ns = 40961
     rng = np.random.default_rng(12)
     n = 256
     vals = payload(rng, n, "int32")
@@ -134,17 +135,14 @@ def test_two_level_fold_matches_reference_past_the_shared_regime(monoid):
 
 
 @pytest.mark.parametrize("name, source, constant", [
-    ("SHARED_MAX_SEGMENTS", "segment_fold.cu", "kSharedMaxSegments"),
     ("MAX_CHUNK", "spmv_block.cu", "kMaxChunk")])
 def test_python_mirrors_of_kernel_constants(name, source, constant):
-    """The wrappers' copies of the CUDA sources' limits (the fold's regime
-    switch, the SpMV's widest block slice) match the sources."""
+    """The wrappers' copies of the CUDA sources' limits (the SpMV's widest
+    block slice) match the sources."""
     import re
     text = (CSRC / source).read_text()
     found = re.search(rf"constexpr [a-z ]+{constant} = (\d+);", text)
-    module = (port_fold_block if source == "segment_fold.cu"
-              else port_spmv_block)
-    assert found and int(found.group(1)) == getattr(module, name)
+    assert found and int(found.group(1)) == getattr(port_spmv_block, name)
 
 
 @pytest.mark.parametrize("dtype", ["int32", "uint32"])
@@ -218,6 +216,22 @@ def test_wrappers_raise_on_unsupported_device():
         blocked_segment_fold(x, valid, ids, 3, monoid="min")
     with pytest.raises(ValueError, match="device"):
         fused_scatter_fold(x, valid, ids, valid, ids, 3, monoid="min")
+
+
+@pytest.mark.parametrize("kernel", ["segment_fold", "spmv_block"])
+def test_cuda_wrappers_refuse_cpu_tensors(kernel):
+    """The CUDA kernels' wrappers check their inputs before any build or
+    launch: a CPU tensor is refused, not folded by the plain version."""
+    x = torch.zeros(4)
+    valid = torch.zeros(4, dtype=torch.bool)
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        if kernel == "segment_fold":
+            segment_fold_cuda(x, valid, ids, 3, "min")
+        else:
+            spmv_block_cuda(x.view(1, 4), ids, ids, valid, None, ids[:1],
+                            torch.zeros(2, dtype=torch.int64), k=1, q=4,
+                            edge_tile=4)
 
 
 @pytest.mark.parametrize("name", ["add", "min", "max"])

@@ -15,13 +15,14 @@ highest-degree vertex folds, captured from the engine.
 
 Rows, each timed ``--rounds`` times in the order old, new, new, old:
 
-  spmv      weighted and unweighted: (a) the baseline kernel, (b) this
-            tree's kernel on plain loads, (c) this tree's kernel streaming
-            through its ring; the CSR product of ``torch.sparse_csr_tensor``
-            as the yardstick (weighted only).  Weighted, also (c) on the
-            same edges with destinations drawn uniformly, which have no hub:
-            what the hubs cost.  With the layout's hub statistics: each
-            destination partition's largest in-degree and edge count.
+  spmv      weighted and unweighted: the baseline kernel and this tree's;
+            the CSR product of ``torch.sparse_csr_tensor`` as the yardstick
+            (weighted only).  Weighted, also this tree's kernel on the same
+            edges with destinations drawn uniformly, which have no hub: what
+            the hubs cost.  With the layout's hub statistics: each
+            destination partition's largest in-degree and edge count.  (To
+            time another variant of a kernel, build it from a checkout of
+            its own and pass that as the baseline.)
   atomics   this tree's ``segment_combine`` (unchanged here) on the layout's
             edges in f32 add, i32 add and f32 min: a float add into shared
             memory is a compare-and-swap loop, the others one instruction.
@@ -31,13 +32,17 @@ Rows, each timed ``--rounds`` times in the order old, new, new, old:
             ``fold2`` (as many sorted ids into 6,145 segments);
             beside ``scatter_reduce_`` onto a filled accumulator
             (``library_ms``) and ``torch.full`` + ``scatter_reduce_``
-            (``library_fill_ms``).
+            (``library_fill_ms``).  Each kernel also through its bare C
+            entry (``old_c``, ``new_c``: the outputs allocated and the
+            arguments converted once, outside the loop), so that the host
+            time splits into the Python wrapper and the C entry's launch.
 
-Each time is given three ways: ``device_ms``, CUDA events around ``--reps``
-launches queued behind a ``torch.cuda._sleep`` so that the card runs them
-back to back, over the count; ``call_ms``, the host clock around the same
-count of calls ending in a synchronize, over the count (host included);
-``event_ms``, the median of single calls each between two CUDA events.
+Each time is given four ways, by ``chip_smoke.kernel_times``: ``ms``, the
+median of single calls each between two CUDA events; ``device_ms``, CUDA
+events around ``--reps`` launches queued behind a ``torch.cuda._sleep`` so
+that the card runs them back to back, over the count; ``call_ms``, the host
+clock around the same count of calls ending in a synchronize, over the count
+(host included); ``host_ms``, that clock stopped before the synchronize.
 Every output of the new kernels is checked bit-exact against the old ones
 on integer payloads.  The record goes to ``--report``; one line per row is
 printed, and the card's name and power limit first.
@@ -53,7 +58,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, NVIDIA data sheet
+sys.path.insert(0, str(ROOT))
+from chip_smoke import bound_ms, kernel_times  # noqa: E402
 
 
 def main() -> int:
@@ -89,6 +95,8 @@ def main() -> int:
     print(smi, flush=True)
     report = {"nvidia_smi": smi, "args": vars(args), "rows": []}
 
+    # the baseline's C interfaces are those of the parent of the commit
+    # that added this tool
     base_csrc = Path(args.baseline).resolve() / "src/repro_torch/csrc"
     P, I64, I32 = _build.P, _build.I64, _build.I32
     old_spmv = _build.CudaKernel("spmv_block", str(base_csrc / "spmv_block.cu"),
@@ -96,7 +104,7 @@ def main() -> int:
                                   P, P))
     old_fold = _build.CudaKernel("segment_fold",
                                  str(base_csrc / "segment_fold.cu"),
-                                 _build.SEGMENT_FOLD.argtypes)
+                                 (P, P, P, I64, I64, I32, I32, P, P, P))
     started = [k.start_build() for k in (old_spmv, old_fold)]
     _build.build_all()
     for k, st in zip((old_spmv, old_fold), started):
@@ -106,64 +114,13 @@ def main() -> int:
     def stream():
         return _build.stream_handle(dev)
 
-    def sync():
-        torch.cuda.synchronize()
-
-    def device_ms(fn, reps):
-        fn()
-        sync()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        host_s = time.perf_counter() - t
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        # hold the stream for twice the host's enqueue time, so the launches
-        # below are all queued before the first one runs
-        torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def call_ms(fn, reps):
-        fn()
-        sync()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        return (time.perf_counter() - t) * 1e3 / reps
-
-    def event_ms(fn, reps):
-        fn()
-        sync()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times))
-
-    def timings(fn, reps):
-        return {"device_ms": device_ms(fn, reps),
-                "call_ms": call_ms(fn, reps),
-                "event_ms": event_ms(fn, reps)}
-
     def in_turns(fns, reps):
         """{name: [timings, ...]}: the variants in order, then reversed, for
         each round."""
         out = {name: [] for name in fns}
         for _ in range(args.rounds):
             for name in list(fns) + list(fns)[::-1]:
-                out[name].append(timings(fns[name], reps))
+                out[name].append(kernel_times(fns[name], reps))
         return out
 
     def emit(row):
@@ -196,10 +153,10 @@ def main() -> int:
                         int(w is not None), y.data_ptr(), stream())
         return y
 
-    def new_spmv_fn(w, ring):
+    def new_spmv_fn(w):
         return spmv_block_cuda(x, *edges, w, vk.tile_src_part,
                                vk.part_tile_off, k=k, q=q, edge_tile=et,
-                               weighted=w is not None, ring=ring)
+                               weighted=w is not None)
 
     valid_np = L.edge_valid.astype(bool)
     src_np = (np.repeat(L.tile_src_part.astype(np.int64), et) * q
@@ -232,15 +189,12 @@ def main() -> int:
         w_chk = w_int if weighted else None
         y_old = torch.empty((k, q), device=dev)
         want = old_spmv_fn(w_chk, y_old).clone()
-        for ring in (False, True):
-            check_equal(new_spmv_fn(w_chk, ring), want,
-                        f"spmv weighted={weighted} ring={ring}")
-        fns = {"a_pr13": lambda: old_spmv_fn(w_time, y_old),
-               "b_plain_loads": lambda: new_spmv_fn(w_time, False),
-               "c_ring": lambda: new_spmv_fn(w_time, True)}
+        check_equal(new_spmv_fn(w_chk), want, f"spmv weighted={weighted}")
+        fns = {"old": lambda: old_spmv_fn(w_time, y_old),
+               "new": lambda: new_spmv_fn(w_time)}
         if weighted:
             fns["csr_library"] = lambda: at_csr @ xv
-            fns["c_ring_uniform_dst"] = lambda: spmv_block_cuda(
+            fns["new_uniform_dst"] = lambda: spmv_block_cuda(
                 x, edges[0], uniform_dst, edges[2], w_time, vk.tile_src_part,
                 vk.part_tile_off, k=k, q=q, edge_tile=et, weighted=True)
         nbytes = ne * (4 + 4 + 1 + (4 if weighted else 0)) + nt * 4 \
@@ -248,7 +202,7 @@ def main() -> int:
         emit({"row": "spmv", "weighted": weighted,
               "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q,
                         "chunk": min(q, MAX_CHUNK)},
-              "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "times": in_turns(fns, args.reps)})
     gk = GatherKernel(L, "add", torch.float32, dev)
     all_parts = torch.ones(k, dtype=torch.bool, device=dev)
@@ -293,13 +247,16 @@ def main() -> int:
     for name, ns, vals, ok, fids in cases:
         fids = fids.to(torch.int32).contiguous()
 
+        def old_args(monoid, v, acc, touched):
+            return (v.data_ptr(), ok.data_ptr(), fids.data_ptr(), v.shape[0],
+                    ns, _build.MONOID_CODES[monoid],
+                    _build.dtype_code(v.dtype), acc.data_ptr(),
+                    touched.data_ptr(), stream())
+
         def old_fold_fn(monoid="min", v=vals):
             acc = torch.empty(ns, dtype=v.dtype, device=dev)
             touched = torch.empty(ns, dtype=torch.bool, device=dev)
-            old_fold.launch(v.data_ptr(), ok.data_ptr(), fids.data_ptr(),
-                            v.shape[0], ns, _build.MONOID_CODES[monoid],
-                            _build.dtype_code(v.dtype), acc.data_ptr(),
-                            touched.data_ptr(), stream())
+            old_fold.launch(*old_args(monoid, v, acc, touched))
             return acc, touched
 
         for monoid in ("add", "min", "max"):
@@ -308,8 +265,14 @@ def main() -> int:
         masked = torch.where(ok, vals, float("inf"))
         ids64 = fids.to(torch.int64)
         lib_acc = torch.full((ns,), float("inf"), device=dev)
+        out_acc, out_touched = old_fold_fn()
+        old_c = c_call(old_fold, old_args("min", vals, out_acc, out_touched))
+        new_c = c_call(_build.SEGMENT_FOLD, old_args(
+            "min", vals, out_acc, out_touched)[:-1]
+            + (torch.cuda.current_device(), stream()))
         fns = {"old": old_fold_fn,
                "new": lambda: segment_fold_cuda(vals, ok, fids, ns, "min"),
+               "old_c": old_c, "new_c": new_c,
                "library": lambda: lib_acc.scatter_reduce_(
                    0, ids64, masked, "amin", include_self=True),
                "library_fill": lambda: torch.full(
@@ -319,12 +282,22 @@ def main() -> int:
         emit({"row": "fold", "case": name, "monoid": "min float32",
               "shape": {"messages": int(vals.shape[0]),
                         "num_segments": ns},
-              "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "times": in_turns(fns, args.reps)})
 
     Path(args.report).parent.mkdir(parents=True, exist_ok=True)
     Path(args.report).write_text(json.dumps(report, indent=1))
     return 0
+
+
+def c_call(kernel, args):
+    """A call of ``kernel``'s bare C entry on ``args``, converted to C
+    once."""
+    fn = kernel._fn
+    cargs = [t(a) for t, a in zip(kernel.argtypes, args)]
+    if fn(*cargs) != 0:
+        raise SystemExit(f"ab_torch_kernels: {kernel.name} failed")
+    return lambda: fn(*cargs)
 
 
 def check_equal(got, want, what):
