@@ -28,9 +28,14 @@ Phases, in order; each prints lines that start with its name:
            ``call_ms``, the host clock around a run of calls ending in a
            synchronize, over the count (host included); ``host_ms``, the
            same clock stopped before the synchronize (the host's time to
-           issue a call).  The segment fold
-           is timed on the main path's SC stream into n_pad + 1 and into
-           4096 segments, and at the tuner's ``fold2`` shape.  Then the
+           issue a call).  The two tile kernels (``fused_dc``,
+           ``segment_combine``) are checked on both of their paths (the
+           ring of bulk copies, and plain loads on arrays off a 16-byte
+           boundary), ``fused_dc`` with ``add_weight`` too, and timed in
+           f32 add beside control rows on the same edges (i32 add, f32 min,
+           plain loads; SSSP's f32 min with ``add_weight``).  The segment
+           fold is timed on the main path's SC stream into n_pad + 1 and
+           into 4096 segments, and at the tuner's ``fold2`` shape.  Then the
            composed DC step of PageRank timed whole and by part, its
            plain-torch slot gather included.
   apps     BFS and SSSP from the highest-degree vertex, CC on the
@@ -42,6 +47,9 @@ Phases, in order; each prints lines that start with its name:
            composed DC path (``REPRO_FUSED=0``: scatter into the bins, then
            gather), bit-exact with the fused runs (PageRank within L1
            1e-6).  Each path's kernels must have been launched by its runs.
+           An engine's set-up on each DC lowering, whole and split into
+           its host check, the fused kernel's check on the card, its
+           host-to-card copies and the rest.
   tuning   ``autotune`` over the card's four tile geometries on the same
            graph, the sweep's times and winner, and ``build_layout`` with
            unset tiles reading the winner back from the cache.
@@ -191,8 +199,11 @@ def main() -> int:
     from repro_torch.kernels.dc_gather import dc_gather, ref_dc_gather
     from repro_torch.kernels.fold_block import (blocked_segment_fold,
                                                 segment_fold)
-    from repro_torch.kernels.fused_step import (ENV_FUSED, add_weight,
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_step import (ENV_FUSED, EdgeTiles,
+                                                add_weight,
                                                 fused_scatter_fold,
+                                                global_edges,
                                                 ref_fused_scatter_fold)
     from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                          ScatterKernel, SpmvKernel)
@@ -253,6 +264,13 @@ def main() -> int:
     def bits(x):
         return x.view(torch.int32) if x.dtype != torch.bool else x
 
+    def unaligned(t):
+        """A copy of ``t`` that starts one element past a 16-byte boundary:
+        the tile kernels take plain loads for it, not the ring."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t)
+        return buf[1:]
+
     def max_abs_err(got, want, what):
         """Every output of a kernel bit-exact with its plain version's:
         values (the largest absolute difference, 0.0 when they agree) and
@@ -268,49 +286,83 @@ def main() -> int:
         return err
 
     # ---------------- kernels ----------------
-    kern = FusedDCKernel(L, "add", torch.float32, dev)
-    edges = (kern.edge_src, kern.edge_valid, kern.edge_dst)
+    # The fused DC kernel reads the layout's tile form; its plain version
+    # reads the global idx and dst, built here from the tiles on the card.
+    kern = FusedDCKernel(L, "add", torch.float32, dev,
+                         apply_weight=add_weight)    # the layout's weights
+    tiles, edge_valid = kern.tiles, kern.edge_valid
+    idx, edge_dst = global_edges(
+        kern.tile_src_part, kern.tile_dst_part, kern.edge_src_local,
+        kern.edge_dst_local, edge_valid, q=L.q, edge_tile=L.edge_tile,
+        n_pad=n_pad)
+    ne = L.num_edges
+    w_int = payload(ne, torch.float32)       # integer weights: exact sums
+    # each path's (tiles, edge_valid, {weights}): the ring, and plain loads
+    # on arrays that start off a 16-byte boundary
+    fused_paths = {
+        "ring": (tiles, edge_valid, {"layout": kern.edge_w, "int": w_int}),
+        "plain_loads": (
+            EdgeTiles(unaligned(tiles.edge_src_local),
+                      unaligned(tiles.edge_dst_local), *tiles[2:]),
+            unaligned(edge_valid), {"layout": unaligned(kern.edge_w),
+                                    "int": unaligned(w_int)})}
+    fused_cases = [(m, d, None, None) for m in MONOIDS for d in dtypes]
+    fused_cases += [("min", "float32", add_weight, "layout"),   # SSSP's
+                    ("add", "float32", add_weight, "int")]
     fused_err = 0.0
-    for monoid in MONOIDS:
-        for dname, dtype in dtypes.items():
+    for path, (tl, ev, ws) in fused_paths.items():
+        for monoid, dname, fn, wkey in fused_cases:
+            dtype = dtypes[dname]
             table = payload(ns, dtype)
             tvalid = torch.rand(ns, generator=gen, device=dev) < 0.5
-            got = fused_scatter_fold(table, tvalid, *edges, ns, monoid=monoid,
-                                     part_off=kern.part_off, q=L.q)
-            want = ref_fused_scatter_fold(M.REGISTRY[monoid](dtype), table,
-                                          tvalid, *edges, ns)
+            got = fused_scatter_fold(
+                table, tvalid, None, ev, None, ns, monoid=monoid, tiles=tl,
+                apply_weight=fn, w=ws[wkey] if fn else None)
+            want = ref_fused_scatter_fold(
+                M.REGISTRY[monoid](dtype), table, tvalid, idx, edge_valid,
+                edge_dst, ns, apply_weight=fn,
+                w=fused_paths["ring"][2][wkey] if fn else None)
             fused_err = max(fused_err, max_abs_err(
-                got, want, f"fused_dc {monoid} {dname}"))
-    table = payload(ns, torch.float32)
-    tvalid = torch.rand(ns, generator=gen, device=dev) < 0.5
-    w = kern.edge_w                        # the layout's SSSP weights
-    fused_err = max(fused_err, max_abs_err(
-        fused_scatter_fold(table, tvalid, *edges, ns, monoid="min",
-                           part_off=kern.part_off, q=L.q,
-                           apply_weight=add_weight, w=w),
-        ref_fused_scatter_fold(M.min_(torch.float32), table, tvalid, *edges,
-                               ns, apply_weight=add_weight, w=w),
-        "fused_dc min float32 add_weight"))
+                got, want, f"fused_dc {path} {monoid} {dname}"
+                + (" add_weight" if fn else "")))
 
-    # timed at PageRank's step: f32 add, every source live
-    pr_table = payload(ns, torch.float32)
+    # timed at PageRank's step: f32 add, every source live; beside it the
+    # same edges in i32 add and f32 min (native shared atomics, no hub
+    # cache), through plain loads, and at SSSP's step (f32 min, add_weight)
     all_valid = torch.ones(ns, dtype=torch.bool, device=dev)
-    fused_t = kernel_times(lambda: fused_scatter_fold(
-        pr_table, all_valid, *edges, ns, monoid="add",
-        part_off=kern.part_off, q=L.q), 20)
+    tables = {"float32": payload(ns, torch.float32),
+              "int32": payload(ns, torch.int32)}
+
+    def fused_call(monoid="add", dname="float32", path="ring", fn=None):
+        tl, ev, ws = fused_paths[path]
+        return lambda: fused_scatter_fold(
+            tables[dname], all_valid, None, ev, None, ns, monoid=monoid,
+            tiles=tl, apply_weight=fn, w=ws["layout"] if fn else None)
+
+    fused_t = kernel_times(fused_call(), 20)
     fused_ms = fused_t["ms"]
+    fused_controls = {
+        "i32_add": kernel_times(fused_call(dname="int32"), 20),
+        "f32_min": kernel_times(fused_call("min"), 20),
+        "f32_add_plain_loads": kernel_times(fused_call(path="plain_loads"),
+                                            20),
+        "f32_min_add_weight": kernel_times(fused_call("min", fn=add_weight),
+                                           20)}
     fused_plain_ms = median_ms(lambda: ref_fused_scatter_fold(
-        M.add(torch.float32), pr_table, all_valid, *edges, ns), 3)
-    ne = L.num_edges
-    fused_bytes = ns * (4 + 1) + ne * (4 + 1 + 4) + (L.k + 1) * 8 \
+        M.add(torch.float32), tables["float32"], all_valid, idx, edge_valid,
+        edge_dst, ns), 3)
+    nt = L.num_edge_tiles
+    fused_bytes = ns * (4 + 1) + ne * (4 + 4 + 1) + nt * 4 + (L.k + 1) * 8 \
         + ns * (4 + 1)
     report["fused_dc"] = {
-        "shape": {"table": ns, "edges": ne, "k": L.k, "q": L.q},
+        "shape": {"table": ns, "edges": ne, "edge_tiles": nt, "k": L.k,
+                  "q": L.q},
         "case": "add float32, all sources live", **fused_t,
         "plain_ms": fused_plain_ms, "bytes": fused_bytes,
         "bound_ms": bound_ms(fused_bytes), "max_abs_err": fused_err,
-        "library_ms": None}
+        "library_ms": None, "controls": fused_controls}
     say("kernels", name="fused_dc", **report["fused_dc"])
+    del fused_paths, tables, w_int, idx
 
     # The fold's shape: the largest SC stream of the hybrid BFS run below.
     # BFS's frontier at superstep i is the level-i set, and the engine's
@@ -398,7 +450,7 @@ def main() -> int:
     # The composed DC path's kernels, at the shapes of its PageRank step:
     # every partition in DC mode, every source live.
     k, q = L.k, L.q
-    nm, ne, nt = L.num_msgs, L.num_edges, L.num_edge_tiles
+    nm = L.num_msgs
     sk = ScatterKernel(L, "add", torch.float32, dev)
     scat = (sk.png_src_local, sk.png_valid, sk.png_tile_part)
     geo = dict(k=k, q=q, msg_tile=L.msg_tile)
@@ -427,27 +479,38 @@ def main() -> int:
     say("kernels", name="dc_gather", **report["dc_gather"])
 
     gk = GatherKernel(L, "add", torch.float32, dev)
-    tiles = (gk.edge_dst_local, gk.tile_dst_part, gk.tile_src_part,
-             gk.tile_first)
     geo = dict(k=k, q=q, edge_tile=L.edge_tile)
-    edge_valid = kern.edge_valid
+    # the ring, and plain loads on arrays off a 16-byte boundary
+    combine_paths = {"ring": lambda a: a, "plain_loads": unaligned}
     combine_err = 0.0
-    for monoid in MONOIDS:
-        for dname, dtype in dtypes.items():
-            vals = payload(ne, dtype)
-            valid = edge_valid & (torch.rand(ne, generator=gen, device=dev)
-                                  < 0.7)
-            part_active = torch.rand(k, generator=gen, device=dev) < 0.5
-            combine_err = max(combine_err, max_abs_err(
-                segment_combine(vals, valid, *tiles, part_active,
-                                monoid=monoid, part_tile_off=gk.part_tile_off,
-                                **geo),
-                ref_segment_combine(vals, valid, *tiles, part_active,
-                                    monoid=monoid, **geo),
-                f"segment_combine {monoid} {dname}"))
-    vals = payload(ne, torch.float32)
+    for path, view in combine_paths.items():
+        for monoid in MONOIDS:
+            for dname, dtype in dtypes.items():
+                vals = payload(ne, dtype)
+                valid = edge_valid & (torch.rand(ne, generator=gen,
+                                                 device=dev) < 0.7)
+                part_active = torch.rand(k, generator=gen, device=dev) < 0.5
+                cargs = (view(vals), view(valid), view(gk.edge_dst_local),
+                         gk.tile_dst_part, gk.tile_src_part, gk.tile_first,
+                         part_active)
+                combine_err = max(combine_err, max_abs_err(
+                    segment_combine(*cargs, monoid=monoid,
+                                    part_tile_off=gk.part_tile_off, **geo),
+                    ref_segment_combine(*cargs, monoid=monoid, **geo),
+                    f"segment_combine {path} {monoid} {dname}"))
     all_parts = torch.ones(k, dtype=torch.bool, device=dev)
-    edge_dst64 = kern.edge_dst.to(torch.int64)
+    combine_vals = {"float32": payload(ne, torch.float32),
+                    "int32": payload(ne, torch.int32)}
+    vals = combine_vals["float32"]
+
+    def combine_call(monoid="add", dname="float32", view=lambda a: a):
+        args = (view(combine_vals[dname]), view(edge_valid),
+                view(gk.edge_dst_local), gk.tile_dst_part, gk.tile_src_part,
+                gk.tile_first, all_parts)
+        return lambda: segment_combine(*args, monoid=monoid,
+                                       part_tile_off=gk.part_tile_off, **geo)
+
+    edge_dst64 = edge_dst.to(torch.int64)
     lib_vals = torch.where(edge_valid, vals, 0.0)
     lib_acc = torch.zeros(ns, device=dev)
     combine_bytes = ne * (4 + 1 + 4) + nt * 4 + (k + 1) * 8 + k \
@@ -456,16 +519,20 @@ def main() -> int:
         "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q},
         "case": "add float32, every source partition active",
         "max_abs_err": combine_err,
-        **kernel_times(lambda: segment_combine(
-            vals, edge_valid, *tiles, all_parts,
-            part_tile_off=gk.part_tile_off, **geo), 20),
+        **kernel_times(combine_call(), 20),
         "plain_ms": median_ms(lambda: ref_segment_combine(
-            vals, edge_valid, *tiles, all_parts, **geo), 3),
+            vals, edge_valid, gk.edge_dst_local, gk.tile_dst_part,
+            gk.tile_src_part, gk.tile_first, all_parts, **geo), 3),
         "library_ms": median_ms(lambda: lib_acc.scatter_reduce_(
             0, edge_dst64, lib_vals, "sum", include_self=True), 20),
-        "bytes": combine_bytes, "bound_ms": bound_ms(combine_bytes)}
+        "bytes": combine_bytes, "bound_ms": bound_ms(combine_bytes),
+        "controls": {
+            "i32_add": kernel_times(combine_call(dname="int32"), 20),
+            "f32_min": kernel_times(combine_call("min"), 20),
+            "f32_add_plain_loads": kernel_times(
+                combine_call(view=unaligned), 20)}}
     say("kernels", name="segment_combine", **report["segment_combine"])
-    del lib_vals, lib_acc
+    del lib_vals, lib_acc, combine_vals
 
     vk = SpmvKernel(L, dev)
     spmv_args = (vk.edge_src_local, vk.edge_dst_local, vk.edge_valid)
@@ -543,8 +610,8 @@ def main() -> int:
     report["composed_dc_step"]["slot_gather_bound_ms"] = bound_ms(
         report["composed_dc_step"]["slot_gather_bytes"])
     say("kernels", name="composed_dc_step", **report["composed_dc_step"])
-    del pr_eng, bins, bins_p, valid_p, vk, gk, sk, kern, edge_valid, \
-        edge_dst64
+    del pr_eng, bins, bins_p, valid_p, vk, gk, sk, kern, tiles, edge_valid, \
+        edge_dst, edge_dst64
 
     # ---------------- apps ----------------
     P = to_scipy(g)                                      # weighted
@@ -648,8 +715,69 @@ def main() -> int:
                              oracle_s=oracle_s)
     say("apps", oracles=report["oracles"])
 
-    # an engine's set-up (edge arrays to the card, the host check of the
-    # fused kernel's precondition) is part of every app's wall time above
+    # An engine's set-up is part of every app's wall time above.  Split on
+    # each DC lowering, inside the one construction that is timed: the host
+    # clock around each host-to-card copy (torch.Tensor.to from the CPU to
+    # the card, with a synchronize after it so that the copy has landed),
+    # around the per-tile host check of the tile kernels' precondition, and
+    # around the fused kernel's per-edge check on the card, less the copy it
+    # makes of the layout's edge_dst.  The rest is host array work and
+    # Python.
+    def engine_setup(fused: bool, name: str, program) -> dict:
+        spent = {"host_tile_check_s": 0.0, "card_edge_check_s": 0.0,
+                 "copies_s": 0.0, "copied_bytes": 0}
+        to = torch.Tensor.to
+
+        def timed_to(tensor, *a, **kw):
+            if tensor.device.type != "cpu":
+                return to(tensor, *a, **kw)
+            start = time.perf_counter()
+            out = to(tensor, *a, **kw)
+            if out.is_cuda:
+                torch.cuda.synchronize()
+                spent["copies_s"] += time.perf_counter() - start
+                spent["copied_bytes"] += tensor.numel() * tensor.element_size()
+            return out
+
+        def phase(fn, key):
+            def run(*a, **kw):
+                copies0, start = spent["copies_s"], time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spent[key] += (time.perf_counter() - start
+                                   - (spent["copies_s"] - copies0))
+            return run
+
+        checks = {"_partition_tile_offsets": "host_tile_check_s",
+                  "_check_edge_dst": "card_edge_check_s"}
+        saved = {fn: getattr(ops, fn) for fn in checks}
+        if not fused:
+            os.environ[ENV_FUSED] = "0"
+        torch.Tensor.to = timed_to
+        for fn, key in checks.items():
+            setattr(ops, fn, phase(saved[fn], key))
+        try:
+            eng, total = timed(lambda: rt.Engine(L, program))
+        finally:
+            torch.Tensor.to = to
+            for fn, f in saved.items():
+                setattr(ops, fn, f)
+            os.environ.pop(ENV_FUSED, None)
+        check(eng.fused == fused, f"{name} engine took the wrong DC path")
+        del eng
+        return {"engine_setup_s": total, **spent,
+                "rest_s": total - spent["host_tile_check_s"]
+                - spent["card_edge_check_s"] - spent["copies_s"]}
+
+    report["engine_setup"] = {
+        f"{name}_{path}": engine_setup(path == "fused", name, program)
+        for path in ("fused", "composed")
+        for name, program in (("bfs", rt.apps.bfs_program()),
+                              ("sssp", rt.apps.sssp_program()))}
+    for key, rec in report["engine_setup"].items():
+        say("apps", engine=key, **rec)
+
     plain, setup_s = timed(
         lambda: rt.Engine(L, rt.apps.bfs_program(), plain=True))
     say("apps", engine_setup_s=setup_s)
@@ -731,19 +859,28 @@ def main() -> int:
                 "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": rec["library_ms"]}
 
+    def controls(rec):
+        """The same edges' control rows, by their times."""
+        return {name: {key: c[key] for key in ("ms", "device_ms")}
+                for name, c in rec["controls"].items()}
+
     kernels = [
-        row("fused_dc", "fused_dc.cu", "fused_step.py:192",
-            launches["fused_dc"], fused_err, report["fused_dc"],
-            report["fused_dc"]["bound_ms"]),
+        dict(row("fused_dc", "fused_dc.cu", "fused_step.py:192",
+                 launches["fused_dc"], fused_err, report["fused_dc"],
+                 report["fused_dc"]["bound_ms"]),
+             controls=controls(report["fused_dc"])),
         row("segment_fold", "segment_fold.cu", "fold_two_level.py:158",
             launches["segment_fold"], fold_err, fold_rows["n_pad_plus_1"],
             fold_rows["n_pad_plus_1"]["bound_ms"]),
         row("dc_gather", "dc_gather.cu", "dc_gather.py:62",
             composed_launches["dc_gather"], gather_err, report["dc_gather"],
             report["dc_gather"]["bound_ms"]),
-        row("segment_combine", "segment_combine.cu", "segment_combine.py:122",
-            composed_launches["segment_combine"], combine_err,
-            report["segment_combine"], report["segment_combine"]["bound_ms"]),
+        dict(row("segment_combine", "segment_combine.cu",
+                 "segment_combine.py:122",
+                 composed_launches["segment_combine"], combine_err,
+                 report["segment_combine"],
+                 report["segment_combine"]["bound_ms"]),
+             controls=controls(report["segment_combine"])),
         row("spmv_block", "spmv_block.cu", "spmv_block.py:69",
             tuning_launches["spmv_block"], spmv_err, rows[True],
             rows[True]["bound_ms"]),

@@ -104,10 +104,10 @@ class Engine:
         self._fold = FoldKernel(mono.name, plain=plain)
         self.fused = fused_enabled()
         if self.fused:
-            self._fused = FusedDCKernel(L, mono.name, mono.dtype, dev,
-                                        plain=plain)
-            if program.apply_weight is not None and L.edge_w is not None:
-                self._fused.apply_weight = program.apply_weight
+            self._fused = FusedDCKernel(
+                L, mono.name, mono.dtype, dev, plain=plain,
+                apply_weight=(program.apply_weight if L.edge_w is not None
+                              else None))
         else:
             self._scatter = ScatterKernel(L, mono.name, mono.dtype, dev,
                                           plain=plain)

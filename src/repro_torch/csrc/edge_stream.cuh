@@ -1,21 +1,24 @@
 // A ring of shared-memory stages that streams one destination partition's
 // edge tiles into a thread block, for the destination-major kernels
-// (spmv_block.cu; written so that fused_dc.cu and segment_combine.cu can take
-// it up).
+// (spmv_block.cu, segment_combine.cu, fused_dc.cu).
 //
 // Why: a kernel that reads its edges with plain loads has as many bytes in
 // flight as its threads have loads outstanding, and a load that waits on a
 // branch or on another load keeps that number low.  Here one producer warp
-// keeps kStages stages of up to kStageEdges edges each in flight with
+// keeps STAGES stages of up to STAGE_EDGES edges each in flight with
 // asynchronous bulk copies (cp.async.bulk, the 1-D form of the Tensor Memory
 // Accelerator), and the consumer warps read arrived stages from shared
-// memory.  At 13 B an edge (spmv_block weighted) a stage is 26 KB, so one
-// block keeps up to 80 KB in flight; 128 blocks keep 10 MB, a few times what
-// 3.35 TB/s at about a microsecond of latency needs (Little's law).  The
-// producer takes a run of consecutive live tiles in one step, not one tile,
-// so that its own work per stage does not set the stream's rate.
+// memory.  At 13 B an edge (spmv_block weighted) a stage of 2048 edges is
+// 26 KB, so one block keeps up to 80 KB in flight; 128 blocks keep 10 MB, a
+// few times what 3.35 TB/s at about a microsecond of latency needs (Little's
+// law).  The producer takes a run of consecutive live tiles in one step, not
+// one tile, so that its own work per stage does not set the stream's rate.
 //
-// What a stage holds: a run of up to kStageEdges edges of the partition's
+// The stage geometry is a template parameter, so that a kernel that keeps
+// more of its shared memory for accumulators (fused_dc.cu weighted) can take
+// a smaller ring.
+//
+// What a stage holds: a run of up to STAGE_EDGES edges of the partition's
 // live tiles, in tile order, as up to kMaxArrays per-edge arrays (element
 // sizes 1, 2, 4 or 8 bytes), plus each 16-edge group's tag (the tile's
 // tile_src_part entry) and the stage's edge count.  A tile is live when the
@@ -41,24 +44,11 @@
 
 namespace edge_stream {
 
-constexpr int kStages = 3;
-constexpr int kStageEdges = 2048;
 constexpr int kGroup = 16;                  // edges per tag; TMA granule
-constexpr int kGroups = kStageEdges / kGroup;
 constexpr int kMaxArrays = 4;
 constexpr int kMaxPieces = 32;              // runs per stage: one per lane
 
-static_assert(kStageEdges % kGroup == 0, "stages hold whole groups");
-
 __host__ __device__ constexpr int align16(int b) { return (b + 15) & ~15; }
-
-// Shared-memory bytes of a ring whose edges take bytes_per_edge bytes.
-__host__ __device__ constexpr int ring_bytes(int bytes_per_edge) {
-  return kStages * kStageEdges * bytes_per_edge     // stage data
-         + kStages * kGroups * 4                    // tags
-         + align16(kStages * 4)                     // counts
-         + 2 * kStages * 8;                         // full, empty barriers
-}
 
 // True when the arrays and edge_tile meet the bulk copies' rules.
 inline bool edge_stream_ok(const void* const* arrays, int n_arrays,
@@ -118,8 +108,23 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// The ring's view of shared memory and of the edge arrays it streams.
+// The ring's view of shared memory and of the edge arrays it streams:
+// STAGES stages of up to STAGE_EDGES edges.
+template <int STAGES, int STAGE_EDGES>
 struct Ring {
+  static constexpr int kStages = STAGES;
+  static constexpr int kStageEdges = STAGE_EDGES;
+  static constexpr int kGroups = STAGE_EDGES / kGroup;
+  static_assert(STAGE_EDGES % kGroup == 0, "stages hold whole groups");
+
+  // Shared-memory bytes of a ring whose edges take bytes_per_edge bytes.
+  __host__ __device__ static constexpr int bytes(int bytes_per_edge) {
+    return kStages * kStageEdges * bytes_per_edge     // stage data
+           + kStages * kGroups * 4                    // tags
+           + align16(kStages * 4)                     // counts
+           + 2 * kStages * 8;                         // full, empty barriers
+  }
+
   unsigned char* data;   // [kStages][stage_bytes]
   int* tag;              // [kStages][kGroups]
   int* count;            // [kStages]
@@ -131,7 +136,7 @@ struct Ring {
   int n_arrays;
   int bytes_per_edge;
 
-  // Lays the ring out at `base` (16-byte aligned, ring_bytes() long).
+  // Lays the ring out at `base` (16-byte aligned, bytes() long).
   __device__ Ring(unsigned char* base, int n, const void* const* arrays,
                   const int* elems) {
     n_arrays = n;

@@ -5,138 +5,193 @@
 // (src/repro/kernels/fused_step.py:192).  Python side:
 // repro_torch/kernels/fused_step.py (fused_dc_cuda).
 //
-// What bounds it on this card: bytes.  Every edge streams idx, edge_valid and
-// dst (and w for SSSP) from device memory once, 9 (13) bytes, against a few
-// integer operations and one shared-memory atomic.  The gathered table of
-// n_pad + 1 four-byte values (about 17 MB at RMAT scale 22) and its validity
-// bytes fit the 50 MB L2, so the random gathers mostly hit L2.
+// What bounds it on this card: by the bytes it must move, 0.19 ms at RMAT
+// scale 22 (every edge reads its source and destination offsets, 4 B each,
+// and validity, 1 B, once, and SSSP's weight, 4 B; the table and its validity
+// are read and acc and touched written once, 5 B a vertex each).  Two costs
+// that bound leaves out hold it above that: each table gather moves a 32-byte
+// L2 sector for 4 bytes and its validity gather another (the table of
+// n_pad + 1 values and its validity bytes, about 21 MB at scale 22, fit the
+// 50 MB L2); and a float atomicAdd into shared memory is a compare-and-swap
+// loop on sm_90a, onto which RMAT hubs put up to a sixth of a partition's
+// edges: with one atomic per edge the warps queue on the hubs' addresses, and
+// the partition with the largest hub sets the kernel's time.
 //
-// Design: the gather-order edges are grouped by destination partition
-// (Layout.blk_off), so one thread block owns one destination partition.  It
-// keeps that partition's q accumulators and touched flags in shared memory,
-// folds the partition's contiguous edge range with shared-memory atomics,
-// and writes its slice of acc and touched once.  No block reads another
-// block's output and nothing folds through global atomics: the paper's lock-
-// and atomic-free partition-centric gather, one partition in one SM's
-// private memory.  The TPU kernel's sequential (bucket x edge-tile) grid is
-// not carried over.  A partition wider than `chunk` segments is split over
-// several blocks; each reads the partition's whole edge range and keeps the
+// Design: the destination-major skeleton of partition_fold.cuh, which
+// spmv_block.cu and segment_combine.cu share, with touched flags and every
+// monoid; this file gives it its edge policy (FusedEdges).  The edges are
+// read in the layout's tile form: destination partition p's tiles are
+// [part_tile_off[p], part_tile_off[p+1]), and edge e of tile t has source
+// tile_src_part[t] * q + src_local[e] (clamped into [0, table_len), as the
+// reference clamps idx) and destination p * q + dst_local[e].  One thread
+// block owns one destination partition: it sets that partition's q
+// accumulators to the identity and its touched flags to 0 in shared memory,
+// folds its tiles into them, and writes its slice of acc and touched once; no
+// global atomics, and no block reads another block's output (the paper's
+// lock- and atomic-free partition-centric gather).  The tiles stream through
+// a ring of shared-memory stages (edge_stream.cuh) filled by one producer
+// warp with bulk asynchronous copies.  Consumer warps read a stage and
+// release it, then gather table[s] and table_valid[s] for all their edges of
+// the stage before any fold, so the gathers overlap, and fold each edge whose
+// edge and source are valid: float add through the warp's register cache of
+// its hub destinations (partition_fold.cuh SharedFold), integer add and
+// min/max as one native shared-memory atomic.  Segments at or above k*q (the
+// engines' sentinel n_pad) receive nothing: identity, untouched.
+//
+// Shared memory at q = 32,768: accumulators and touched flags take 163,840 B.
+// The unweighted ring (three stages of 2048 edges at 9 B) takes
+// Ring::bytes(9) = 56,896 B, 220,736 B in all; the weighted one (13 B an
+// edge) takes three stages of 1536 edges, Ring::bytes(13) = 61,120 B, 224,960
+// B in all; both under the 232,448 B a block may have.  So a block holds at
+// most kMaxChunk = 32,768 segments, and a partition wider than that is split
+// over several blocks, each walking all the partition's tiles and keeping the
 // edges that land in its slice.
 //
-// Precondition, checked on the host once per layout (FusedDCKernel): every
-// valid edge in partition p's range has p*q <= dst < (p+1)*q.  Segments at or
-// above k*q (the engines' sentinel n_pad) receive nothing: identity, untouched.
-#include "fold.cuh"
+// Where the copies' rules are not met (edge_tile not a multiple of 16, or an
+// edge array not 16-byte aligned: edge_stream_ok), the skeleton's plain-load
+// kernel runs instead: each warp takes one tile, and each lane loads
+// partition_fold::kDirectEdges edges of it before gathering and folding them.
+//
+// Precondition, checked once per layout (FusedDCKernel; the per-edge part on
+// the card): part_tile_off is the destination-partition structure of the
+// tiles, and every valid edge's global destination is p * q + dst_local with
+// dst_local in [0, q).  An edge whose dst_local lies outside [0, q) folds
+// nothing.
+#include "edge_stream.cuh"
+#include "partition_fold.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+using partition_fold::Slice;
+
+constexpr int kMaxChunk = 32768;
 enum { EDGE_NONE = 0, EDGE_ADD_WEIGHT = 1 };
 
+// The weighted ring is smaller, so that it fits beside kMaxChunk segments.
+template <bool WEIGHT>
+using RingFor = std::conditional_t<WEIGHT, edge_stream::Ring<3, 1536>,
+                                   edge_stream::Ring<3, 2048>>;
+
+static_assert(edge_stream::align16(5 * kMaxChunk) + RingFor<false>::bytes(9)
+                      <= partition_fold::kMaxSmem &&
+                  edge_stream::align16(5 * kMaxChunk) +
+                          RingFor<true>::bytes(13) <= partition_fold::kMaxSmem,
+              "accumulators, touched flags and the ring fit one block");
+
+__device__ __forceinline__ long long clamp_index(long long s, long long len) {
+  return s < 0 ? 0 : (s >= len ? len - 1 : s);
+}
+
+// An edge gathers its source's value and validity from the table and folds
+// the value (plus its weight, with WEIGHT) into its destination if both the
+// edge and the source are valid (partition_fold.cuh, "Edge policies").
 template <int M, typename T, bool WEIGHT>
-__global__ void __launch_bounds__(kThreads) fused_dc_kernel(
-    const T* __restrict__ table, const uint8_t* __restrict__ table_valid,
-    long long table_len, const int* __restrict__ idx,
-    const uint8_t* __restrict__ edge_valid, const int* __restrict__ dst,
-    const float* __restrict__ w, const long long* __restrict__ part_off,
-    int q, int chunk, int n_chunks, long long num_segments,
-    T* __restrict__ acc, uint8_t* __restrict__ touched) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);
-  uint8_t* s_touched = smem + sizeof(T) * chunk;
+struct FusedEdges {
+  using Value = T;
+  using Ring = RingFor<WEIGHT>;
+  static constexpr int kMonoid = M;
+  static constexpr bool kTouched = true;
+  static constexpr int kArrays = WEIGHT ? 4 : 3;
+  const void* arrays[4];   // src_local, dst_local, valid, w
+  int elems[4];
+  const T* table;
+  const uint8_t* table_valid;
+  long long table_len;
+  int q;
 
-  const int p = blockIdx.x / n_chunks;
-  const int c = blockIdx.x % n_chunks;
-  const long long lo = (long long)p * q + (long long)c * chunk;
-  const int width = min(chunk, q - c * chunk);
+  struct Edge {
+    long long si = 0;   // the source's table index
+    int key = -1;
+    float w = 0.0f;
+    uint8_t tv = 0;
+    T v = T(0);
+  };
 
-  for (int i = threadIdx.x; i < width; i += kThreads) {
-    s_acc[i] = identity<M, T>();
-    s_touched[i] = 0;
+  __device__ bool live(int) const { return true; }
+
+  __device__ Edge read(const void* const* a, long long i, int tag,
+                       const Slice& b) const {
+    Edge ed;
+    const int local = static_cast<const int*>(a[1])[i] - b.lo;
+    ed.si = clamp_index(
+        (long long)tag * q + static_cast<const int*>(a[0])[i], table_len);
+    if constexpr (WEIGHT) ed.w = static_cast<const float*>(a[3])[i];
+    if (static_cast<const uint8_t*>(a[2])[i] && local >= 0 && local < b.width)
+      ed.key = local;
+    return ed;
   }
-  __syncthreads();
 
-  const long long e1 = part_off[p + 1];
-  for (long long e = part_off[p] + threadIdx.x; e < e1; e += kThreads) {
-    // the three edge streams load together; the table loads after them
-    const uint8_t ev = edge_valid[e];
-    const long long local = (long long)dst[e] - lo;
-    long long s = idx[e];
-    s = s < 0 ? 0 : (s >= table_len ? table_len - 1 : s);
-    if (!ev || local < 0 || local >= width || !table_valid[s]) continue;
-    T v = table[s];
-    if constexpr (WEIGHT) v = v + w[e];
-    fold_into<M, T>(&s_acc[local], v);
-    s_touched[local] = 1;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < width; i += kThreads) {
-    acc[lo + i] = s_acc[i];
-    touched[lo + i] = s_touched[i];
-  }
-  if (blockIdx.x == 0) {
-    const long long tail = (long long)(gridDim.x / n_chunks) * q;
-    for (long long i = tail + threadIdx.x; i < num_segments; i += kThreads) {
-      acc[i] = identity<M, T>();
-      touched[i] = 0;
+  __device__ void gather(Edge& ed) const {
+    if (ed.key >= 0) {
+      ed.tv = __ldg(table_valid + ed.si);
+      ed.v = __ldg(table + ed.si);
     }
   }
-}
+
+  __device__ int key(const Edge& ed) const { return ed.tv ? ed.key : -1; }
+
+  __device__ T value(const Edge& ed) const {
+    if constexpr (WEIGHT) return ed.v + ed.w;
+    else return ed.v;
+  }
+};
 
 template <int M, typename T, bool WEIGHT>
 cudaError_t launch(const void* table, const void* table_valid,
-                   long long table_len, const void* idx,
-                   const void* edge_valid, const void* dst, const void* w,
-                   const void* part_off, int k, int q, int chunk,
-                   long long num_segments, void* acc, void* touched,
-                   cudaStream_t stream) {
-  const int n_chunks = (q + chunk - 1) / chunk;
-  const size_t smem = (sizeof(T) + 1) * (size_t)chunk;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_dc_kernel<M, T, WEIGHT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_dc_kernel<M, T, WEIGHT><<<k * n_chunks, kThreads, smem, stream>>>(
-      static_cast<const T*>(table), static_cast<const uint8_t*>(table_valid),
-      table_len, static_cast<const int*>(idx),
-      static_cast<const uint8_t*>(edge_valid), static_cast<const int*>(dst),
-      static_cast<const float*>(w), static_cast<const long long*>(part_off),
-      q, chunk, n_chunks, num_segments, static_cast<T*>(acc),
-      static_cast<uint8_t*>(touched));
-  return cudaGetLastError();
+                   long long table_len, const void* src_local,
+                   const void* dst_local, const void* valid, const void* w,
+                   const partition_fold::Parts& parts, void* acc,
+                   void* touched, cudaStream_t stream) {
+  FusedEdges<M, T, WEIGHT> e{{src_local, dst_local, valid, w},
+                             {4, 4, 1, 4},
+                             static_cast<const T*>(table),
+                             static_cast<const uint8_t*>(table_valid),
+                             table_len,
+                             parts.q};
+  return partition_fold::launch_tiles(e, parts, acc, touched, stream);
 }
 
 }  // namespace
 
-// Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
-// w is read only when edge_fn is EDGE_ADD_WEIGHT (float tables only).
+// Returns 0 or the cudaError_t of the launch.  Pointers are device pointers:
+// table and table_valid hold table_len entries, src_local, dst_local, valid
+// (and w) one per edge of the tiles, tile_src_part one per tile,
+// part_tile_off k+1, acc and touched num_segments >= k*q.  w is read only
+// when edge_fn is EDGE_ADD_WEIGHT (float tables only).  chunk (at most
+// kMaxChunk) is the widest slice of a partition one block holds.  The tiles
+// stream through the ring where the copies' rules allow (edge_stream_ok), and
+// are loaded directly otherwise.
 extern "C" int fused_dc(const void* table, const void* table_valid,
-                        long long table_len, const void* idx,
-                        const void* edge_valid, const void* dst,
-                        const void* w, const void* part_off, int k, int q,
+                        long long table_len, const void* src_local,
+                        const void* dst_local, const void* valid,
+                        const void* w, const void* tile_src_part,
+                        const void* part_tile_off, int k, int q, int edge_tile,
                         int chunk, long long num_segments, int monoid,
                         int dtype, int edge_fn, void* acc, void* touched,
                         void* stream) {
-  if (k <= 0 || q <= 0 || chunk <= 0 || table_len <= 0 ||
-      num_segments < (long long)k * q)
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+      table_len <= 0 || num_segments < (long long)k * q)
     return (int)cudaErrorInvalidValue;
+  const partition_fold::Parts parts{
+      static_cast<const int*>(tile_src_part),
+      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
+      0, num_segments};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
     using C = decltype(combo);
     using T = typename C::type;
     if (edge_fn == EDGE_ADD_WEIGHT) {
       if constexpr (std::is_same_v<T, float>)
-        return launch<C::monoid, T, true>(table, table_valid, table_len, idx,
-                                          edge_valid, dst, w, part_off, k, q,
-                                          chunk, num_segments, acc, touched, s);
+        return launch<C::monoid, T, true>(table, table_valid, table_len,
+                                          src_local, dst_local, valid, w,
+                                          parts, acc, touched, s);
       else
         return cudaErrorInvalidValue;
     }
     if (edge_fn != EDGE_NONE) return cudaErrorInvalidValue;
-    return launch<C::monoid, T, false>(table, table_valid, table_len, idx,
-                                       edge_valid, dst, w, part_off, k, q,
-                                       chunk, num_segments, acc, touched, s);
+    return launch<C::monoid, T, false>(table, table_valid, table_len,
+                                       src_local, dst_local, valid, w, parts,
+                                       acc, touched, s);
   });
 }
 

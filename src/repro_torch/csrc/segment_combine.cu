@@ -5,25 +5,44 @@
 // (src/repro/kernels/segment_combine.py:122).  Python side:
 // repro_torch/kernels/segment_combine.py (segment_combine_cuda).
 //
-// What bounds it on this card: bytes.  Every edge of a live tile reads its
-// value (4 B), validity (1 B) and destination offset (4 B) once; each
-// partition's q accumulators and touched flags are written once (5 B a
-// vertex).  The work is one shared-memory atomic per valid edge.
+// What bounds it on this card: by the bytes it must move, 0.19 ms at RMAT
+// scale 22 (every edge of a live tile reads its value, 4 B, validity, 1 B,
+// and destination offset, 4 B, once; each partition's q accumulators and
+// touched flags are written once, 5 B a vertex).  What the bound leaves out
+// is the float add: an atomicAdd into shared memory is a compare-and-swap
+// loop on sm_90a, and RMAT hubs put up to a sixth of a partition's edges on
+// one address, so with one atomic per edge the warps queue there.
 //
-// Design: the same as fused_dc.cu, reading a materialized edge stream instead
-// of gathering from a table.  Edge tiles are destination-major, so the tiles
-// of destination partition p are [part_tile_off[p], part_tile_off[p+1]) and
-// their edges one contiguous range.  One thread block owns one destination
-// partition: it sets that partition's q accumulators to the identity in
-// shared memory (the TPU kernel's reset at tile_first), folds its tiles into
-// them with shared-memory atomics, and writes its slice of acc and touched
-// once.  Each warp takes one tile at a time and skips it whole when its
-// source partition is inactive (part_active[tile_src_part[t]] == 0, the
-// paper's 2-level active list), so a skipped tile costs no edge bytes.  No
-// global atomics, and no block reads another block's output.  A partition
-// wider than `chunk` segments is split over several blocks; each walks the
-// partition's tiles and keeps the edges that land in its slice.  A partition
-// with no tiles is written as the identity, untouched.
+// Design: the destination-major skeleton of partition_fold.cuh, which
+// spmv_block.cu and fused_dc.cu share; this file gives it its edge policy
+// (CombineEdges).  Edge tiles are destination-major, so the tiles of
+// destination partition p are [part_tile_off[p], part_tile_off[p+1]).  One
+// thread block owns one destination partition: it sets that partition's q
+// accumulators to the identity in shared memory (the TPU kernel's reset at
+// tile_first), folds its tiles into them, and writes its slice of acc and
+// touched once; no global atomics, and no block reads another block's
+// output.  The tiles stream through a ring of shared-memory stages
+// (edge_stream.cuh): one producer warp keeps three stages of 2048 edges in
+// flight with bulk asynchronous copies and skips each tile whose source
+// partition is outside [0, k) or inactive (part_active[tile_src_part[t]] ==
+// 0, the paper's 2-level active list), so a skipped tile costs no edge
+// bytes.  Consumer warps read a stage, release it, and fold each edge: float
+// add through the warp's register cache of its hub destinations
+// (partition_fold.cuh SharedFold), integer add and min/max as one native
+// shared-memory atomic.
+//
+// Shared memory at q = 32,768: accumulators and touched flags take 163,840
+// B, the ring Ring::bytes(9) = 56,896 B; 220,736 B in all, under the 232,448
+// B a block may have.  So a block holds at most kMaxChunk = 32,768 segments,
+// and a partition wider than that is split over several blocks, each walking
+// all the partition's tiles and keeping the edges that land in its slice.  A
+// partition with no tiles is written as the identity, untouched.
+//
+// Where the copies' rules are not met (edge_tile not a multiple of 16, or an
+// edge array not 16-byte aligned: edge_stream_ok), the skeleton's plain-load
+// kernel runs instead: each warp takes one tile, and each lane loads
+// partition_fold::kDirectEdges edges of it before folding them (through the
+// same SharedFold).
 //
 // The TPU kernel folds float add by a one-hot matmul, so one non-finite
 // message there turns its whole partition into NaN; this kernel folds each
@@ -34,64 +53,66 @@
 // part_tile_off is the destination-partition structure of the tiles.  A tile
 // whose source partition lies outside [0, k), and an edge whose dst_local
 // lies outside [0, q), fold nothing.
-#include "fold.cuh"
+#include "edge_stream.cuh"
+#include "partition_fold.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using partition_fold::Slice;
 
+constexpr int kMaxChunk = 32768;
+
+static_assert(edge_stream::align16(5 * kMaxChunk) +
+                      edge_stream::Ring<3, 2048>::bytes(9) <=
+                  partition_fold::kMaxSmem,
+              "accumulators, touched flags and the ring fit one block");
+
+// An edge folds its value into its destination if it is valid; a tile whose
+// source partition is outside [0, k) or inactive is not read
+// (partition_fold.cuh, "Edge policies").
 template <int M, typename T>
-__global__ void __launch_bounds__(kThreads) segment_combine_kernel(
-    const T* __restrict__ vals, const uint8_t* __restrict__ valid,
-    const int* __restrict__ dst_local, const int* __restrict__ tile_src_part,
-    const long long* __restrict__ part_tile_off,
-    const uint8_t* __restrict__ part_active, int k, int q, int edge_tile,
-    int chunk, int n_chunks, T* __restrict__ acc,
-    uint8_t* __restrict__ touched) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);
-  uint8_t* s_touched = smem + sizeof(T) * chunk;
+struct CombineEdges {
+  using Value = T;
+  using Ring = edge_stream::Ring<3, 2048>;
+  static constexpr int kMonoid = M;
+  static constexpr bool kTouched = true;
+  static constexpr int kArrays = 3;
+  const void* arrays[4];   // vals, dst_local, valid
+  int elems[4];
+  int k;
+  const uint8_t* part_active;
 
-  const int p = blockIdx.x / n_chunks;
-  const int c = blockIdx.x % n_chunks;
-  const int lo = c * chunk;
-  const int width = min(chunk, q - lo);
+  struct Edge {
+    int key = -1;
+    T v = T(0);
+  };
 
-  for (int i = threadIdx.x; i < width; i += kThreads) {
-    s_acc[i] = identity<M, T>();
-    s_touched[i] = 0;
+  __device__ bool live(int sp) const {
+    return sp >= 0 && sp < k && part_active[sp];
   }
-  __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long t1 = part_tile_off[p + 1];
-  for (long long t = part_tile_off[p] + warp; t < t1; t += kWarps) {
-    const int sp = tile_src_part[t];                    // warp-uniform
-    if (sp < 0 || sp >= k || !part_active[sp]) continue;
-    const long long e0 = t * edge_tile;
-    for (int i = lane; i < edge_tile; i += 32) {
-      const long long e = e0 + i;
-      const uint8_t ok = valid[e];
-      const int local = dst_local[e] - lo;
-      if (!ok || local < 0 || local >= width) continue;
-      fold_into<M, T>(&s_acc[local], vals[e]);
-      s_touched[local] = 1;
-    }
+  __device__ Edge read(const void* const* a, long long i, int,
+                       const Slice& b) const {
+    Edge ed;
+    const int local = static_cast<const int*>(a[1])[i] - b.lo;
+    ed.v = static_cast<const T*>(a[0])[i];
+    if (static_cast<const uint8_t*>(a[2])[i] && local >= 0 && local < b.width)
+      ed.key = local;
+    return ed;
   }
-  __syncthreads();
 
-  const long long base = (long long)p * q + lo;
-  for (int i = threadIdx.x; i < width; i += kThreads) {
-    acc[base + i] = s_acc[i];
-    touched[base + i] = s_touched[i];
-  }
-}
+  __device__ void gather(Edge&) const {}
+  __device__ int key(const Edge& ed) const { return ed.key; }
+  __device__ T value(const Edge& ed) const { return ed.v; }
+};
 
 }  // namespace
 
 // Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
-// acc and touched hold k*q entries, part_tile_off k+1.
+// acc and touched hold k*q entries, part_tile_off k+1.  chunk (at most
+// kMaxChunk) is the widest slice of a partition one block holds.  The tiles
+// stream through the ring where the copies' rules allow (edge_stream_ok), and
+// are loaded directly otherwise.
 extern "C" int segment_combine(const void* vals, const void* valid,
                                const void* dst_local,
                                const void* tile_src_part,
@@ -99,26 +120,21 @@ extern "C" int segment_combine(const void* vals, const void* valid,
                                const void* part_active, int k, int q,
                                int edge_tile, int chunk, int monoid, int dtype,
                                void* acc, void* touched, void* stream) {
-  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0)
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
+  const partition_fold::Parts parts{
+      static_cast<const int*>(tile_src_part),
+      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
+      0, (long long)k * q};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (q + chunk - 1) / chunk;
   return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
     using C = decltype(combo);
     using T = typename C::type;
-    const size_t smem = (sizeof(T) + 1) * (size_t)chunk;
-    cudaError_t err = cudaFuncSetAttribute(
-        segment_combine_kernel<C::monoid, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    segment_combine_kernel<C::monoid, T><<<k * n_chunks, kThreads, smem, s>>>(
-        static_cast<const T*>(vals), static_cast<const uint8_t*>(valid),
-        static_cast<const int*>(dst_local),
-        static_cast<const int*>(tile_src_part),
-        static_cast<const long long*>(part_tile_off),
-        static_cast<const uint8_t*>(part_active), k, q, edge_tile, chunk,
-        n_chunks, static_cast<T*>(acc), static_cast<uint8_t*>(touched));
-    return cudaGetLastError();
+    const CombineEdges<C::monoid, T> e{{vals, dst_local, valid, nullptr},
+                                       {(int)sizeof(T), 4, 1, 0},
+                                       k,
+                                       static_cast<const uint8_t*>(part_active)};
+    return partition_fold::launch_tiles(e, parts, acc, touched, s);
   });
 }
 

@@ -67,7 +67,7 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in sorted(CSRC.glob("*.cuh")) + [self.source]:
+        for f in sorted(self.source.parent.glob("*.cuh")) + [self.source]:
             h.update(f.read_bytes())
         return build_dir() / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -81,8 +81,8 @@ class CudaKernel:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(self.source)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(self.source.parent), "-o",
+               str(tmp), str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True), tmp
 
@@ -121,8 +121,9 @@ class CudaKernel:
 
 FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
     P, P, I64,          # table, table_valid, table_len
-    P, P, P, P, P,      # idx, edge_valid, dst, w, part_off
-    I32, I32, I32,      # k, q, chunk
+    P, P, P, P,         # src_local, dst_local, edge_valid, w
+    P, P,               # tile_src_part, part_tile_off
+    I32, I32, I32, I32,  # k, q, edge_tile, chunk
     I64, I32, I32, I32,  # num_segments, monoid, dtype, edge_fn
     P, P, P))           # acc, touched, stream
 SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (

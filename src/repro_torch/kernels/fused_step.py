@@ -10,14 +10,19 @@ edge_valid``; apply the optional edge function; fold add/min/max into
 Two versions, chosen by the device of the tensors:
 
   * :func:`ref_fused_scatter_fold`, the plain PyTorch version (CPU tensors;
-    the oracle of the kernel on the card);
+    the oracle of the kernel on the card), on the global ``idx`` and
+    ``dst`` of the reference's contract;
   * :func:`fused_dc_cuda`, the CUDA kernel ``csrc/fused_dc.cu`` (CUDA
     tensors): one thread block per destination partition, accumulating in
-    shared memory.  It needs the partition structure of the gather-order
-    edges, ``part_off`` (edge offset of each destination partition) and
-    ``q``, and the precondition that every valid edge of partition ``p``
-    has ``p*q <= dst < (p+1)*q`` (:class:`repro_torch.kernels.ops.FusedDCKernel`
-    checks it once per layout).
+    shared memory.  It reads the edges in the layout's tile form,
+    :class:`EdgeTiles`, in place of ``idx`` and ``dst``: edge ``e`` of tile
+    ``t`` has ``idx = clamp(tile_src_part[t] * q + edge_src_local[e])`` and
+    ``dst = p * q + edge_dst_local[e]``, ``p`` the destination partition
+    whose tile range (``part_tile_off``) holds ``t``.
+    :class:`repro_torch.kernels.ops.FusedDCKernel` checks once per layout
+    that this is the layout's ``edge_dst`` on every valid edge, and
+    :func:`global_edges` builds ``idx`` and ``dst`` from the tiles for the
+    plain version.
 
 The CUDA kernel knows one edge function, :func:`add_weight`; any other
 ``apply_weight`` raises on CUDA tensors.
@@ -25,6 +30,7 @@ The CUDA kernel knows one edge function, :func:`add_weight`; any other
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +40,11 @@ from .fold_block import segment_fold
 
 ENV_FUSED = "REPRO_FUSED"
 
-#: widest partition slice one thread block keeps in shared memory: 40960
-#: four-byte accumulators plus touched bytes is 200 KB of the 227 KB limit
-MAX_CHUNK = 40960
+#: widest partition slice one thread block keeps in shared memory: 32768
+#: four-byte accumulators and touched bytes (160 KB) beside the ring of edge
+#: stages, under the 227 KB limit (``kMaxChunk`` in csrc/fused_dc.cu and
+#: csrc/segment_combine.cu)
+MAX_CHUNK = 32768
 
 
 def fused_enabled() -> bool:
@@ -55,6 +63,37 @@ def add_weight(vals, w):
 _EDGE_FNS = {None: 0, add_weight: 1}
 
 
+class EdgeTiles(NamedTuple):
+    """The gather-order edges in a destination-major layout's tile form, on
+    one device: what the CUDA kernel reads in place of ``idx`` and ``dst``.
+
+    ``part_tile_off`` ([k+1] int64) gives each destination partition's tiles;
+    ``tile_src_part`` ([NT] int32) each tile's source partition;
+    ``edge_src_local``, ``edge_dst_local`` ([NT * edge_tile] int32) each
+    edge's ids within its partitions."""
+    edge_src_local: torch.Tensor
+    edge_dst_local: torch.Tensor
+    tile_src_part: torch.Tensor
+    part_tile_off: torch.Tensor
+    q: int
+    edge_tile: int
+
+
+def global_edges(tile_src_part, tile_dst_part, edge_src_local, edge_dst_local,
+                 edge_valid, *, q: int, edge_tile: int, n_pad: int):
+    """``(idx, dst)``, int32 ``[NE]``, of the tile form, with torch ops on the
+    tensors' device: ``idx`` the global source clamped into ``[0, n_pad]``,
+    ``dst`` the global destination on valid edges and the sentinel ``n_pad``
+    on the others (the reference layout's ``edge_dst``)."""
+    src_part = tile_src_part.to(torch.int64).repeat_interleave(edge_tile)
+    idx = (src_part * q + edge_src_local).clamp_(0, n_pad).to(torch.int32)
+    del src_part
+    dst_part = tile_dst_part.to(torch.int64).repeat_interleave(edge_tile)
+    dst = torch.where(edge_valid.to(torch.bool), dst_part * q + edge_dst_local,
+                      n_pad).to(torch.int32)
+    return idx, dst
+
+
 def ref_fused_scatter_fold(mono, table, table_valid, idx, edge_valid, dst,
                            num_segments: int, apply_weight=None, w=None):
     """Plain PyTorch version with :func:`fused_scatter_fold`'s contract."""
@@ -66,22 +105,28 @@ def ref_fused_scatter_fold(mono, table, table_valid, idx, edge_valid, dst,
     return segment_fold(vals, valid, dst, num_segments, mono.name)
 
 
-def fused_dc_cuda(table, table_valid, idx, edge_valid, dst,
-                  num_segments: int, monoid: str, part_off, q: int,
-                  apply_weight=None, w=None):
+def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
+                  monoid: str, tiles: EdgeTiles, apply_weight=None, w=None):
     """Launch ``csrc/fused_dc.cu`` on the current stream."""
-    ns, ne, m = int(num_segments), idx.shape[0], table.shape[0]
+    ns, m = int(num_segments), table.shape[0]
     dev = table.device
+    nt, q, et = tiles.tile_src_part.shape[0], int(tiles.q), int(tiles.edge_tile)
+    k, ne = tiles.part_tile_off.shape[0] - 1, nt * et
     _build.check_cuda(table, "table", shape=(m,))
     _build.check_cuda(table_valid, "table_valid", torch.bool, (m,), dev)
-    _build.check_cuda(idx, "idx", torch.int32, (ne,), dev)
     _build.check_cuda(edge_valid, "edge_valid", torch.bool, (ne,), dev)
-    _build.check_cuda(dst, "dst", torch.int32, (ne,), dev)
-    _build.check_cuda(part_off, "part_off", torch.int64, None, dev)
-    k = part_off.shape[0] - 1
-    if k < 1 or q < 1 or ns < k * q:
-        raise ValueError(f"need k >= 1 partitions of q >= 1 segments within "
-                         f"num_segments, got k={k} q={q} num_segments={ns}")
+    _build.check_cuda(tiles.edge_src_local, "edge_src_local", torch.int32,
+                      (ne,), dev)
+    _build.check_cuda(tiles.edge_dst_local, "edge_dst_local", torch.int32,
+                      (ne,), dev)
+    _build.check_cuda(tiles.tile_src_part, "tile_src_part", torch.int32,
+                      (nt,), dev)
+    _build.check_cuda(tiles.part_tile_off, "part_tile_off", torch.int64,
+                      (k + 1,), dev)
+    if k < 1 or q < 1 or et < 1 or ns < k * q:
+        raise ValueError(f"need k, q and edge_tile >= 1 and k*q segments "
+                         f"within num_segments, got k={k} q={q} "
+                         f"edge_tile={et} num_segments={ns}")
     if apply_weight not in _EDGE_FNS:
         raise ValueError("the CUDA fused DC kernel applies no edge function "
                          "but repro_torch.kernels.fused_step.add_weight")
@@ -92,20 +137,20 @@ def fused_dc_cuda(table, table_valid, idx, edge_valid, dst,
     acc = torch.empty(ns, dtype=table.dtype, device=dev)
     touched = torch.empty(ns, dtype=torch.bool, device=dev)
     _build.FUSED_DC.launch(
-        table.data_ptr(), table_valid.data_ptr(), m, idx.data_ptr(),
-        edge_valid.data_ptr(), dst.data_ptr(),
+        table.data_ptr(), table_valid.data_ptr(), m,
+        tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
+        edge_valid.data_ptr(),
         w.data_ptr() if apply_weight is not None else None,
-        part_off.data_ptr(), k, int(q), min(int(q), MAX_CHUNK), ns,
-        _build.MONOID_CODES[monoid], _build.dtype_code(table.dtype),
-        _EDGE_FNS[apply_weight], acc.data_ptr(), touched.data_ptr(),
-        _build.stream_handle())
+        tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(), k, q,
+        et, min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
+        _build.dtype_code(table.dtype), _EDGE_FNS[apply_weight],
+        acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
     return acc, touched
 
 
 def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                        num_segments: int, *, monoid: str = "add",
-                       part_off=None, q: int = None,
-                       apply_weight=None, w=None):
+                       tiles: EdgeTiles = None, apply_weight=None, w=None):
     """Gather-from-table + edge function + segmented fold, fused.
 
     Contract (the reference's ``fused_dc``):
@@ -118,7 +163,8 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
       edge_valid:  [NE] bool static structural validity per edge.
       dst:         [NE] int32 destination segment per edge.
       num_segments: segment count (the engine passes ``n_pad + 1``).
-      part_off, q: the destination-partition structure (CUDA only).
+      tiles:       CUDA only, in place of ``idx`` and ``dst`` (which must
+                   then be None): the edges' tile form, :class:`EdgeTiles`.
       apply_weight, w: optional edge function ``f(vals, w)`` and [NE]
                    weights.
     Returns:
@@ -133,9 +179,10 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                                       edge_valid, dst, num_segments,
                                       apply_weight=apply_weight, w=w)
     if kind == "cuda":
-        if part_off is None or q is None:
-            raise ValueError("the CUDA fused DC kernel needs part_off and q")
-        return fused_dc_cuda(table, table_valid, idx, edge_valid, dst,
-                             num_segments, monoid, part_off, q,
-                             apply_weight=apply_weight, w=w)
+        if tiles is None or idx is not None or dst is not None:
+            raise ValueError("the CUDA fused DC kernel reads the edges' tile "
+                             "form: pass tiles=EdgeTiles(...) and idx=dst="
+                             "None")
+        return fused_dc_cuda(table, table_valid, edge_valid, num_segments,
+                             monoid, tiles, apply_weight=apply_weight, w=w)
     raise ValueError(f"no fused DC step for device {table.device}")

@@ -3,8 +3,8 @@
 Counterparts of ``FoldKernel``, ``FusedDCKernel``, ``ScatterKernel``,
 ``GatherKernel`` and ``SpmvKernel`` in :mod:`repro.kernels.ops`.  The
 layout-bound classes bind a layout once: they move its arrays to the
-engine's device and check, on the host, the preconditions of the CUDA
-kernels.
+engine's device and check the preconditions of the CUDA kernels, per tile
+on the host and, for the fused kernel, per edge on the device.
 
 Each takes ``plain=True`` to run the plain PyTorch versions on any device;
 ``chip_smoke.py`` uses that to hold a whole app run on the card against the
@@ -20,7 +20,8 @@ import torch
 from ..core import monoid as M
 from .dc_gather import dc_gather, ref_dc_gather
 from .fold_block import blocked_segment_fold, segment_fold
-from .fused_step import fused_scatter_fold, ref_fused_scatter_fold
+from .fused_step import (EdgeTiles, fused_scatter_fold, global_edges,
+                         ref_fused_scatter_fold)
 from .segment_combine import ref_segment_combine, segment_combine
 from .spmv_block import ref_spmv_block, spmv_block
 
@@ -40,71 +41,11 @@ class FoldKernel:
                                     monoid=self.monoid)
 
 
-def _edge_src_global(layout) -> np.ndarray:
-    """Per-edge *global* source vertex of the gather-order edge stream.
-
-    Every edge tile lies inside one ``(p', p)`` block, so the tile's
-    source partition base plus the per-edge local offset recovers the
-    global id — the index the fused kernel gathers the message table with
-    (clamped into the sentinel for pad tiles)."""
-    base = np.repeat(layout.tile_src_part.astype(np.int64),
-                     layout.edge_tile) * layout.q
-    src = base + layout.edge_src_local.astype(np.int64)
-    return np.clip(src, 0, layout.n_pad).astype(np.int32)
-
-
-def _partition_edge_offsets(layout) -> np.ndarray:
-    """``int64[k+1]``: destination partition ``p``'s gather-order edges are
-    ``[off[p], off[p+1])``; raises unless every valid edge's ``dst`` lies in
-    its partition, the CUDA fused kernel's precondition."""
-    k, q = layout.k, layout.q
-    off = np.asarray(layout.blk_off[::k], dtype=np.int64)
-    if len(off) != k + 1 or off[-1] != layout.num_edges:
-        raise ValueError("blk_off does not cover the gather-order edges")
-    part = np.repeat(np.arange(k, dtype=np.int64), np.diff(off))
-    valid = layout.edge_valid.astype(bool)
-    if np.any(layout.edge_dst[valid].astype(np.int64) // q != part[valid]):
-        raise ValueError("a valid gather-order edge lies outside its "
-                         "destination partition")
-    return off
-
-
-class FusedDCKernel:
-    """Fused DC scatter→fold bound to a layout.
-
-    ``apply_weight`` is engine-configured: :class:`repro_torch.core.engine.Engine`
-    sets it once, under the same condition the reference applies it."""
-
-    def __init__(self, layout, monoid_name: str, dtype: torch.dtype,
-                 device, plain: bool = False):
-        self.monoid = monoid_name
-        self.dtype = dtype
-        self.plain = plain
-        self.n_pad = layout.n_pad
-        self.q = layout.q
-        self.part_off = torch.from_numpy(
-            _partition_edge_offsets(layout)).to(device)
-        self.edge_src = torch.from_numpy(_edge_src_global(layout)).to(device)
-        self.edge_valid = torch.from_numpy(
-            layout.edge_valid.astype(bool)).to(device)
-        self.edge_dst = torch.from_numpy(
-            layout.edge_dst.astype(np.int32)).to(device)
-        self.edge_w = (torch.from_numpy(layout.edge_w).to(device)
-                       if layout.edge_w is not None else None)
-        self.apply_weight = None               # engine-configured
-
-    def __call__(self, table, table_valid):
-        aw = self.apply_weight
-        w = self.edge_w if aw is not None else None
-        if self.plain:
-            return ref_fused_scatter_fold(
-                M.REGISTRY[self.monoid](self.dtype), table, table_valid,
-                self.edge_src, self.edge_valid, self.edge_dst,
-                self.n_pad + 1, apply_weight=aw, w=w)
-        return fused_scatter_fold(
-            table, table_valid, self.edge_src, self.edge_valid,
-            self.edge_dst, self.n_pad + 1, monoid=self.monoid,
-            part_off=self.part_off, q=self.q, apply_weight=aw, w=w)
+def _on_device(array: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A layout array on ``device``; a dtype change happens there, not on
+    the host."""
+    t = torch.from_numpy(array).to(device)
+    return t if dtype is None else t.to(dtype)
 
 
 def _partition_tile_offsets(layout) -> np.ndarray:
@@ -112,7 +53,8 @@ def _partition_tile_offsets(layout) -> np.ndarray:
     ``[off[p], off[p+1])``.  Raises unless the tiles are destination-major,
     ``tile_first`` marks exactly each partition's first tile and the tiles
     cover the edge arrays: the precondition of the CUDA kernels that read
-    the tiles by partition (``segment_combine.cu``, ``spmv_block.cu``)."""
+    the tiles by partition (``fused_dc.cu``, ``segment_combine.cu``,
+    ``spmv_block.cu``)."""
     k, nt = layout.k, layout.num_edge_tiles
     dst = layout.tile_dst_part.astype(np.int64)
     if nt * layout.edge_tile != layout.num_edges:
@@ -129,7 +71,7 @@ def _partition_tile_offsets(layout) -> np.ndarray:
 
 
 class _TileGeometry:
-    """The tile arrays of a layout on a device, shared by the two
+    """The tile arrays of a layout on a device, shared by the three
     destination-major kernels."""
 
     def __init__(self, layout, device):
@@ -143,14 +85,82 @@ class _TileGeometry:
             self.device)
         self.tile_first = torch.from_numpy(
             layout.tile_first.astype(bool)).to(self.device)
-        self.edge_dst_local = torch.from_numpy(layout.edge_dst_local).to(
-            self.device)
+        self.edge_dst_local = _on_device(layout.edge_dst_local, self.device)
         # [k, 1]: destination partitions that receive edge tiles
         self.has_tiles = torch.from_numpy(
             layout.part_has_tiles.astype(bool)).to(self.device)[:, None]
 
     def geometry(self):
         return dict(k=self.k, q=self.q, edge_tile=self.edge_tile)
+
+
+def _check_edge_dst(layout, tiles: "_TileGeometry", edge_valid) -> None:
+    """Raise unless every valid edge's ``edge_dst`` is ``p * q +
+    edge_dst_local`` with ``edge_dst_local`` in ``[0, q)``, ``p`` its tile's
+    destination partition: the per-edge part of the fused kernel's
+    precondition, run once on the tiles' device."""
+    q, local = tiles.q, tiles.edge_dst_local
+    want = tiles.tile_dst_part.repeat_interleave(tiles.edge_tile) * q + local
+    bad = (local < 0) | (local >= q)
+    bad |= _on_device(layout.edge_dst, tiles.device) != want
+    del want
+    if bool((bad & edge_valid).any()):
+        raise ValueError("a valid gather-order edge lies outside its "
+                         "destination partition")
+
+
+class FusedDCKernel(_TileGeometry):
+    """Fused DC scatter→fold bound to a layout: ``(table, table_valid) ->
+    (acc, touched)`` over ``[n_pad + 1]``.
+
+    The CUDA kernel reads the layout's tile form (:class:`EdgeTiles`), so
+    binding a layout moves its tile arrays to the device and checks the
+    kernel's precondition there (per tile on the host, per edge on the
+    device): no per-edge array is built on the host.  The plain route (the
+    CPU, or ``plain=True``) builds the reference's global ``idx`` and
+    ``dst`` from the tiles on the device (:func:`global_edges`).
+
+    ``apply_weight`` is engine-configured:
+    :class:`repro_torch.core.engine.Engine` passes it, under the same
+    condition the reference applies it, and the layout's weights go to the
+    device only then."""
+
+    def __init__(self, layout, monoid_name: str, dtype: torch.dtype,
+                 device, plain: bool = False, apply_weight=None):
+        super().__init__(layout, device)
+        self.monoid = monoid_name
+        self.dtype = dtype
+        self.plain = plain
+        self.n_pad = layout.n_pad
+        self.edge_src_local = _on_device(layout.edge_src_local, self.device)
+        self.edge_valid = _on_device(layout.edge_valid, self.device,
+                                     torch.bool)
+        _check_edge_dst(layout, self, self.edge_valid)
+        self.apply_weight = apply_weight
+        self.edge_w = (_on_device(layout.edge_w, self.device)
+                       if apply_weight is not None else None)
+        self.tiles = EdgeTiles(self.edge_src_local, self.edge_dst_local,
+                               self.tile_src_part, self.part_tile_off,
+                               self.q, self.edge_tile)
+        self.edge_src = self.edge_dst = None     # the plain route's idx, dst
+        if plain or self.device.type == "cpu":
+            self.edge_src, self.edge_dst = global_edges(
+                self.tile_src_part, self.tile_dst_part, self.edge_src_local,
+                self.edge_dst_local, self.edge_valid, q=self.q,
+                edge_tile=self.edge_tile, n_pad=self.n_pad)
+
+    def __call__(self, table, table_valid):
+        aw = self.apply_weight
+        w = self.edge_w if aw is not None else None
+        if self.plain:
+            return ref_fused_scatter_fold(
+                M.REGISTRY[self.monoid](self.dtype), table, table_valid,
+                self.edge_src, self.edge_valid, self.edge_dst,
+                self.n_pad + 1, apply_weight=aw, w=w)
+        return fused_scatter_fold(
+            table, table_valid, self.edge_src, self.edge_valid,
+            self.edge_dst, self.n_pad + 1, monoid=self.monoid,
+            tiles=self.tiles, apply_weight=aw, w=w)
 
 
 class GatherKernel(_TileGeometry):

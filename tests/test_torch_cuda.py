@@ -13,11 +13,14 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.core import monoid as M
 from repro_torch.graph import build_layout, from_edges, rmat, symmetrize
 from repro_torch.kernels import _build
 from repro_torch.kernels.dc_gather import dc_gather_cuda, ref_dc_gather
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
-from repro_torch.kernels.fused_step import MAX_CHUNK, add_weight
+from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
+                                            fused_dc_cuda, global_edges,
+                                            ref_fused_scatter_fold)
 from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                      ScatterKernel, SpmvKernel)
 from repro_torch.kernels.segment_combine import (ref_segment_combine,
@@ -392,3 +395,148 @@ def test_composed_apps_on_the_card_match_the_cpu(dev, monkeypatch):
     np.testing.assert_allclose(pr, rt.pagerank(L, device="cpu")["pr"],
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(pr, fused["pr"]["pr"], rtol=0, atol=1e-6)
+
+
+def _dead_tiles(rng, L, device):
+    """``tile_src_part`` with about 30 % of its tiles moved outside [0, k)."""
+    tsp = L.tile_src_part.copy()
+    dead = rng.random(len(tsp)) < 0.3
+    tsp[dead] = np.where(rng.random(int(dead.sum())) < 0.5, -1, L.k)
+    return torch.from_numpy(tsp).to(device)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "et128",
+                                    "et1024", "sparse", "et24"])
+def test_fused_dc_tile_paths_match_plain(dev, layouts, layout, aligned):
+    """Every monoid x dtype, and f32 ``add_weight``, on both of the kernel's
+    paths (the ring: ``edge_tile`` a multiple of 16 and 16-byte aligned edge
+    arrays; plain loads: ``et24`` or arrays off a 16-byte boundary), with
+    tiles whose source partition lies outside [0, k) (their sources clamp
+    into the table, as the reference's ``idx`` does); ``wide`` has
+    partitions wider than ``MAX_CHUNK``."""
+    L = layouts[layout]
+    rng = np.random.default_rng(11)
+    kern = FusedDCKernel(L, "add", torch.float32, dev)
+    tsp = _dead_tiles(rng, L, dev)
+    w = _payload(rng, L.num_edges, torch.float32, dev)
+    arrays = (kern.edge_src_local, kern.edge_dst_local, kern.edge_valid, w)
+    if not aligned:
+        arrays = tuple(_unaligned(a) for a in arrays)
+    src_local, dst_local, edge_valid, w = arrays
+    tiles = EdgeTiles(src_local, dst_local, tsp, kern.part_tile_off, L.q,
+                      L.edge_tile)
+    idx, dst = global_edges(tsp, kern.tile_dst_part, src_local, dst_local,
+                            edge_valid, q=L.q, edge_tile=L.edge_tile,
+                            n_pad=L.n_pad)
+    ns = L.n_pad + 1
+    cases = [(m, d, None) for m in MONOIDS for d in DTYPES]
+    cases += [("min", "float32", add_weight), ("add", "float32", add_weight)]
+    for monoid, dtype, fn in cases:
+        table = _payload(rng, ns, DTYPES[dtype], dev)
+        tvalid = torch.from_numpy(rng.random(ns) < 0.6).to(dev)
+        wt = w if fn is not None else None
+        before = _build.FUSED_DC.launches
+        got = fused_dc_cuda(table, tvalid, edge_valid, ns, monoid, tiles,
+                            apply_weight=fn, w=wt)
+        torch.cuda.synchronize()
+        assert _build.FUSED_DC.launches == before + 1
+        want = ref_fused_scatter_fold(M.REGISTRY[monoid](DTYPES[dtype]),
+                                      table, tvalid, idx, edge_valid, dst,
+                                      ns, apply_weight=fn, w=wt)
+        _assert_bit_exact(got, want)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "et128",
+                                    "et1024", "sparse", "et24"])
+def test_segment_combine_tile_paths_match_plain(dev, layouts, layout,
+                                                aligned):
+    """Every monoid x dtype on both of the kernel's paths, with dead tiles
+    (source partition outside [0, k)) and inactive source partitions, which
+    the ring's producer skips."""
+    L = layouts[layout]
+    rng = np.random.default_rng(12)
+    kern = GatherKernel(L, "add", torch.float32, dev)
+    tsp = _dead_tiles(rng, L, dev)
+    geo = dict(k=L.k, q=L.q, edge_tile=L.edge_tile)
+    for monoid in MONOIDS:
+        for dtype in DTYPES.values():
+            vals = _payload(rng, L.num_edges, dtype, dev)
+            valid = torch.from_numpy(L.edge_valid & (
+                rng.random(L.num_edges) < 0.8)).to(dev)
+            dst_local = kern.edge_dst_local
+            if not aligned:
+                vals, valid, dst_local = (_unaligned(a) for a in
+                                          (vals, valid, dst_local))
+            part_active = torch.from_numpy(rng.random(L.k) < 0.6).to(dev)
+            before = _build.SEGMENT_COMBINE.launches
+            got = segment_combine_cuda(vals, valid, dst_local, tsp,
+                                       kern.part_tile_off, part_active,
+                                       monoid=monoid, **geo)
+            torch.cuda.synchronize()
+            assert _build.SEGMENT_COMBINE.launches == before + 1
+            _assert_bit_exact(got, ref_segment_combine(
+                vals, valid, dst_local, kern.tile_dst_part, tsp,
+                kern.tile_first, part_active, monoid=monoid, **geo))
+
+
+def _star(n=4096, k=8):
+    """Every vertex of the upper half points at vertex 5, a hub in
+    partition 0, and one ring of edges keeps the other partitions live."""
+    src = np.concatenate([np.arange(n // 2, n), np.arange(n)])
+    dst = np.concatenate([np.full(n // 2, 5), (np.arange(n) * 7 + 1) % n])
+    return build_layout(from_edges(src, dst, n=n, dedup=True), k=k,
+                        edge_tile=64, msg_tile=32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_zero_payloads_on_a_star_hub_come_out_touched(dev, dtype):
+    """Zero payloads into a hub that the warps' register caches take: the
+    hub's sum is the identity, and it must come out touched, from both tile
+    kernels, as it does from their plain versions."""
+    L = _star()
+    ns = L.n_pad + 1
+    zeros = torch.zeros(ns, dtype=torch.int32, device=dev).view(DTYPES[dtype])
+    ok = torch.ones(ns, dtype=torch.bool, device=dev)
+    kern = FusedDCKernel(L, "add", DTYPES[dtype], dev)
+    plain = FusedDCKernel(L, "add", DTYPES[dtype], dev, plain=True)
+    got = kern(zeros, ok)
+    _assert_bit_exact(got, plain(zeros, ok))
+    assert bool(got[1][5])
+    gk = GatherKernel(L, "add", DTYPES[dtype], dev)
+    gp = GatherKernel(L, "add", DTYPES[dtype], dev, plain=True)
+    vals = zeros[:1].expand(L.num_edges).contiguous()
+    valid = torch.from_numpy(L.edge_valid).to(dev)
+    parts = torch.ones(L.k, dtype=torch.bool, device=dev)
+    got = gk(vals, valid, parts)
+    _assert_bit_exact(got, gp(vals, valid, parts))
+    assert bool(got[1][5])
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_apps_on_both_lowerings_match_the_plain_route(dev, monkeypatch,
+                                                      fused):
+    """BFS, SSSP, CC and PageRank through the kernels and through the plain
+    versions on the card (``Engine(plain=True)``), on the fused and the
+    composed DC lowering."""
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    g = rmat(10, 8, seed=6, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    S = build_layout(symmetrize(g), k=8, edge_tile=64, msg_tile=32)
+    src = int(np.argmax(g.out_degrees()))
+    runs = {"bfs": (rt.bfs, rt.apps.bfs_program(), L, ("level", "parent")),
+            "sssp": (rt.sssp, rt.apps.sssp_program(), L, ("dist",)),
+            "cc": (rt.connected_components, rt.apps.cc_program(), S,
+                   ("label",))}
+    for name, (app, program, lay, keys) in runs.items():
+        eng = rt.Engine(lay, program, plain=True)
+        assert eng.fused == (fused == "1")
+        args = (lay,) if name == "cc" else (lay, src)
+        a, b = app(*args), app(*args, engine=eng)
+        for key in keys:
+            assert np.array_equal(a[key], b[key]), (name, key)
+    eng = rt.Engine(L, rt.apps.pagerank_program(g.n), mode="dc", plain=True)
+    np.testing.assert_allclose(rt.pagerank(L)["pr"],
+                               rt.pagerank(L, engine=eng)["pr"], rtol=0,
+                               atol=1e-6)

@@ -1,41 +1,39 @@
 #!/usr/bin/env python3
-"""Time the port's ``spmv_block`` and ``segment_fold`` CUDA kernels against
-the same two kernels built from another checkout, in turns, on one NVIDIA GPU.
+"""Time the port's tile kernels (``fused_dc``, ``segment_combine``,
+``spmv_block``) against the same kernels built from another checkout, in
+turns, on one NVIDIA GPU.
 
     python3 tools/ab_torch_kernels.py --baseline DIR [--scale 22] [--seed 0]
         [--rounds 2] [--report results/ab_torch_kernels.json]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``); its ``src/repro_torch/csrc/
-spmv_block.cu`` and ``segment_fold.cu`` are built beside this tree's, with
-the C interfaces they had there.  The inputs are ``chip_smoke.py``'s: Graph500
-RMAT at ``--scale`` from ``--seed`` with its k=128, edge_tile=256 layout; the
-fold's main stream is the largest SC stream a hybrid BFS from the
-highest-degree vertex folds, captured from the engine.
+fused_dc.cu``, ``segment_combine.cu`` and ``spmv_block.cu`` are built beside
+this tree's.  Each baseline kernel is called through the C interface its own
+source declares, which must be one this tool knows: this tree's, or, for
+``fused_dc``, the edge-range form it had before it read the tile form (the
+global ``idx`` and ``dst`` and the partitions' edge offsets, built here once
+on the card from the layout).  Any other interface is refused.  To time a
+variant of a kernel, build it in another checkout and pass that.  The
+inputs are ``chip_smoke.py``'s: Graph500 RMAT at ``--scale`` from
+``--seed`` with its k=128, edge_tile=256 layout.
 
-Rows, each timed ``--rounds`` times in the order old, new, new, old:
+Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
 
+  hubs      the layout's hub statistics: each destination partition's
+            largest in-degree and edge count.
   spmv      weighted and unweighted: the baseline kernel and this tree's;
             the CSR product of ``torch.sparse_csr_tensor`` as the yardstick
-            (weighted only).  Weighted, also this tree's kernel on the same
-            edges with destinations drawn uniformly, which have no hub: what
-            the hubs cost.  With the layout's hub statistics: each
-            destination partition's largest in-degree and edge count.  (To
-            time another variant of a kernel, build it from a checkout of
-            its own and pass that as the baseline.)
-  atomics   this tree's ``segment_combine`` (unchanged here) on the layout's
-            edges in f32 add, i32 add and f32 min: a float add into shared
-            memory is a compare-and-swap loop, the others one instruction.
-  fold      f32 min on the main stream into n_pad + 1 segments, on the same
-            stream with ids mod 4096, and on the tuner's two shapes: ``fold``
-            (the layout's edges into n_pad + 1 segments by destination) and
-            ``fold2`` (as many sorted ids into 6,145 segments);
-            beside ``scatter_reduce_`` onto a filled accumulator
-            (``library_ms``) and ``torch.full`` + ``scatter_reduce_``
-            (``library_fill_ms``).  Each kernel also through its bare C
-            entry (``old_c``, ``new_c``: the outputs allocated and the
-            arguments converted once, outside the loop), so that the host
-            time splits into the Python wrapper and the C entry's launch.
+            (weighted only), and this tree's kernel on the same edges with
+            destinations drawn uniformly, which have no hub.
+  combine   ``segment_combine`` on the layout's edges, every source
+            partition active, in f32 add, i32 add, f32 min and u32 min (a
+            float add into shared memory is a compare-and-swap loop, the
+            others one instruction); this tree's kernel also through plain
+            loads (arrays off a 16-byte boundary).
+  fused     ``fused_dc`` at PageRank's step (every source live) in the same
+            four cases and at SSSP's (f32 min with ``add_weight``), also
+            through plain loads.
 
 Each time is given four ways, by ``chip_smoke.kernel_times``: ``ms``, the
 median of single calls each between two CUDA events; ``device_ms``, CUDA
@@ -49,6 +47,7 @@ printed, and the card's name and power limit first.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +59,42 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import bound_ms, kernel_times  # noqa: E402
+
+# fused_dc's C entry before it read the tile form, and its argument types
+FUSED_EDGE_RANGE = ("table", "table_valid", "table_len", "idx", "edge_valid",
+                    "dst", "w", "part_off", "k", "q", "chunk", "num_segments",
+                    "monoid", "dtype", "edge_fn", "acc", "touched", "stream")
+
+
+def c_params(source: Path, name: str) -> tuple:
+    """The parameter names of ``extern "C" int name(...)`` in ``source``."""
+    found = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                      source.read_text())
+    if found is None:
+        raise SystemExit(f"ab_torch_kernels: {source} declares no C entry "
+                         f"{name}")
+    return tuple(re.split(r"[\s*]+", p.strip())[-1]
+                 for p in found.group(1).split(","))
+
+
+def baseline_kernel(kern, base_csrc: Path):
+    """``(kernel, interface)``: ``kern``'s C entry built from the baseline's
+    source, bound with the argument types of the interface that source
+    declares: ``"this"`` (this tree's) or ``"edge_range"`` (``fused_dc``
+    before the tile form).  Refuses any other."""
+    from repro_torch.kernels import _build
+    src = base_csrc / kern.source.name
+    params = c_params(src, kern.name)
+    if params == c_params(kern.source, kern.name):
+        return _build.CudaKernel(kern.name, str(src), kern.argtypes), "this"
+    if kern.name == "fused_dc" and params == FUSED_EDGE_RANGE:
+        P, I64, I32 = _build.P, _build.I64, _build.I32
+        return _build.CudaKernel(kern.name, str(src), (
+            P, P, I64, P, P, P, P, P, I32, I32, I32, I64, I32, I32, I32, P,
+            P, P)), "edge_range"
+    raise SystemExit(f"ab_torch_kernels: the baseline's {kern.name} takes "
+                     f"({', '.join(params)}), an interface this tool does not "
+                     "know")
 
 
 def main() -> int:
@@ -79,11 +114,11 @@ def main() -> int:
         print("ab_torch_kernels: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch as rt
     from repro_torch.graph import build_layout, rmat
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fold_block import segment_fold_cuda
-    from repro_torch.kernels.ops import GatherKernel, SpmvKernel
+    from repro_torch.kernels.fused_step import (EdgeTiles, add_weight,
+                                                fused_dc_cuda, global_edges)
+    from repro_torch.kernels.ops import FusedDCKernel, GatherKernel, SpmvKernel
     from repro_torch.kernels.segment_combine import segment_combine_cuda
     from repro_torch.kernels.spmv_block import MAX_CHUNK, spmv_block_cuda
 
@@ -95,19 +130,16 @@ def main() -> int:
     print(smi, flush=True)
     report = {"nvidia_smi": smi, "args": vars(args), "rows": []}
 
-    # the baseline's C interfaces are those of the parent of the commit
-    # that added this tool
     base_csrc = Path(args.baseline).resolve() / "src/repro_torch/csrc"
-    P, I64, I32 = _build.P, _build.I64, _build.I32
-    old_spmv = _build.CudaKernel("spmv_block", str(base_csrc / "spmv_block.cu"),
-                                 (P, P, P, P, P, P, P, I32, I32, I32, I32, I32,
-                                  P, P))
-    old_fold = _build.CudaKernel("segment_fold",
-                                 str(base_csrc / "segment_fold.cu"),
-                                 (P, P, P, I64, I64, I32, I32, P, P, P))
-    started = [k.start_build() for k in (old_spmv, old_fold)]
+    old, iface = {}, {}
+    for key, kern in (("spmv", _build.SPMV_BLOCK),
+                      ("combine", _build.SEGMENT_COMBINE),
+                      ("fused", _build.FUSED_DC)):
+        old[key], iface[key] = baseline_kernel(kern, base_csrc)
+    report["baseline_interfaces"] = iface
+    started = [k.start_build() for k in old.values()]
     _build.build_all()
-    for k, st in zip((old_spmv, old_fold), started):
+    for k, st in zip(old.values(), started):
         k.finish_build(st)
         k.lib()
 
@@ -135,9 +167,17 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
 
-    def payload(n):
-        return torch.randint(-64, 64, (n,), generator=gen,
-                             device=dev).to(torch.float32)
+    def payload(n, dtype=torch.float32):
+        lo = 0 if dtype == torch.uint32 else -64
+        x = torch.randint(lo, 64, (n,), generator=gen, device=dev)
+        if dtype == torch.uint32:
+            return x.to(torch.int32).view(torch.uint32)
+        return x.to(dtype)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t)
+        return buf[1:]
 
     # ---------------- spmv ----------------
     vk = SpmvKernel(L, dev)
@@ -146,11 +186,12 @@ def main() -> int:
     edges = (vk.edge_src_local, vk.edge_dst_local, vk.edge_valid)
 
     def old_spmv_fn(w, y):
-        old_spmv.launch(x.data_ptr(), *(a.data_ptr() for a in edges),
-                        w.data_ptr() if w is not None else None,
-                        vk.tile_src_part.data_ptr(),
-                        vk.part_tile_off.data_ptr(), k, q, et, min(q, 40960),
-                        int(w is not None), y.data_ptr(), stream())
+        old["spmv"].launch(x.data_ptr(), *(a.data_ptr() for a in edges),
+                           w.data_ptr() if w is not None else None,
+                           vk.tile_src_part.data_ptr(),
+                           vk.part_tile_off.data_ptr(), k, q, et,
+                           min(q, MAX_CHUNK), int(w is not None),
+                           y.data_ptr(), stream())
         return y
 
     def new_spmv_fn(w):
@@ -168,12 +209,12 @@ def main() -> int:
                                        src_np])),
             torch.from_numpy(L.edge_w[valid_np]), (L.n_pad, L.n_pad)).to(dev)
         at_csr = coo.coalesce().to_sparse_csr()
-    del coo, src_np, valid_np
+    del coo, src_np
     xv = x.reshape(-1, 1)
     w_int = payload(ne)
     uniform_dst = torch.randint(0, q, (ne,), generator=gen, device=dev).to(
         torch.int32)
-    indeg = np.bincount(L.edge_dst[L.edge_valid.astype(bool)],
+    indeg = np.bincount(L.edge_dst[valid_np],
                         minlength=L.n_pad + 1)[:L.n_pad].reshape(k, q)
     part_edges = indeg.sum(1)
     hub = indeg.max(1)
@@ -184,6 +225,7 @@ def main() -> int:
           "partition_edges_mean": float(part_edges.mean()),
           "partition_edges_max": int(part_edges.max()),
           "partition_with_most_edges": int(part_edges.argmax())})
+    del valid_np
     for weighted in (True, False):
         w_time = vk.edge_w if weighted else None
         w_chk = w_int if weighted else None
@@ -204,100 +246,126 @@ def main() -> int:
                         "chunk": min(q, MAX_CHUNK)},
               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "times": in_turns(fns, args.reps)})
+    del at_csr, vk, x, xv, uniform_dst
+
+    # ---------------- combine ----------------
     gk = GatherKernel(L, "add", torch.float32, dev)
     all_parts = torch.ones(k, dtype=torch.bool, device=dev)
-    fns = {}
-    for name, dtype, monoid in (("f32_add", torch.float32, "add"),
-                                ("i32_add", torch.int32, "add"),
-                                ("f32_min", torch.float32, "min")):
-        vals = payload(ne).to(dtype)
-        fns[name] = (lambda vals=vals, monoid=monoid: segment_combine_cuda(
-            vals, edges[2], gk.edge_dst_local, gk.tile_src_part,
+    edge_valid = torch.from_numpy(L.edge_valid).to(dev)
+    dtypes = {"f32": torch.float32, "i32": torch.int32, "u32": torch.uint32}
+    cases = (("f32_add", "f32", "add"), ("i32_add", "i32", "add"),
+             ("f32_min", "f32", "min"), ("u32_min", "u32", "min"))
+
+    def combine_args(vals, monoid, view=lambda a: a):
+        acc = torch.empty((k, q), dtype=vals.dtype, device=dev)
+        touched = torch.empty((k, q), dtype=torch.bool, device=dev)
+        return (view(vals).data_ptr(), view(edge_valid).data_ptr(),
+                view(gk.edge_dst_local).data_ptr(),
+                gk.tile_src_part.data_ptr(), gk.part_tile_off.data_ptr(),
+                all_parts.data_ptr(), k, q, et, min(q, MAX_CHUNK),
+                _build.MONOID_CODES[monoid], _build.dtype_code(vals.dtype),
+                acc.data_ptr(), touched.data_ptr(), stream()), (acc, touched)
+
+    def run_c(kern, args_out):
+        args, out = args_out
+        kern.launch(*args)
+        return out
+
+    nbytes = ne * (4 + 1 + 4) + nt * 4 + (k + 1) * 8 + k + L.n_pad * (4 + 1)
+    for name, dname, monoid in cases:
+        vals = payload(ne, dtypes[dname])
+        check_equal(segment_combine_cuda(
+            vals, edge_valid, gk.edge_dst_local, gk.tile_src_part,
             gk.part_tile_off, all_parts, k=k, q=q, edge_tile=et,
-            monoid=monoid))
-    emit({"row": "atomics", "kernel": "segment_combine",
-          "times": in_turns(fns, args.reps)})
-    del at_csr, w_int, vk, gk, x, xv, edges, uniform_dst, fns
-
-    # ---------------- fold ----------------
-    eng = rt.Engine(L, rt.apps.bfs_program())
-    folds = []
-    inner = eng._fold
-
-    def capture(vals, valid, ids, ns):
-        folds.append((vals, valid, ids))
-        return inner(vals, valid, ids, ns)
-
-    eng._fold = capture
-    rt.bfs(L, int(np.argmax(g.out_degrees())), engine=eng)
-    vals_i, valid, ids = max(folds, key=lambda f: f[0].shape[0])
-    del folds, eng
-    n = ids.shape[0]
-    ns2 = 4096 + 2048 + 1
-    rng = np.random.default_rng(0)
-    edge_valid = torch.from_numpy(L.edge_valid.astype(bool)).to(dev)
-    ids2 = torch.from_numpy(np.sort(rng.integers(0, ns2 - 1, ne)).astype(
-        np.int32)).to(dev)
-    ids2 = torch.where(edge_valid, ids2, ns2 - 1).to(torch.int32)
-    edge_dst = torch.from_numpy(L.edge_dst.astype(np.int32)).to(dev)
-    cases = (("main", L.n_pad + 1, payload(n), valid, ids),
-             ("mod4096", 4096, payload(n), valid, ids % 4096),
-             ("tuner_fold", L.n_pad + 1, payload(ne), edge_valid, edge_dst),
-             ("fold2", ns2, payload(ne), edge_valid, ids2))
-    for name, ns, vals, ok, fids in cases:
-        fids = fids.to(torch.int32).contiguous()
-
-        def old_args(monoid, v, acc, touched):
-            return (v.data_ptr(), ok.data_ptr(), fids.data_ptr(), v.shape[0],
-                    ns, _build.MONOID_CODES[monoid],
-                    _build.dtype_code(v.dtype), acc.data_ptr(),
-                    touched.data_ptr(), stream())
-
-        def old_fold_fn(monoid="min", v=vals):
-            acc = torch.empty(ns, dtype=v.dtype, device=dev)
-            touched = torch.empty(ns, dtype=torch.bool, device=dev)
-            old_fold.launch(*old_args(monoid, v, acc, touched))
-            return acc, touched
-
-        for monoid in ("add", "min", "max"):
-            check_equal(segment_fold_cuda(vals, ok, fids, ns, monoid),
-                        old_fold_fn(monoid), f"fold {name} {monoid}")
-        masked = torch.where(ok, vals, float("inf"))
-        ids64 = fids.to(torch.int64)
-        lib_acc = torch.full((ns,), float("inf"), device=dev)
-        out_acc, out_touched = old_fold_fn()
-        old_c = c_call(old_fold, old_args("min", vals, out_acc, out_touched))
-        new_c = c_call(_build.SEGMENT_FOLD, old_args(
-            "min", vals, out_acc, out_touched)[:-1]
-            + (torch.cuda.current_device(), stream()))
-        fns = {"old": old_fold_fn,
-               "new": lambda: segment_fold_cuda(vals, ok, fids, ns, "min"),
-               "old_c": old_c, "new_c": new_c,
-               "library": lambda: lib_acc.scatter_reduce_(
-                   0, ids64, masked, "amin", include_self=True),
-               "library_fill": lambda: torch.full(
-                   (ns,), float("inf"), device=dev).scatter_reduce_(
-                       0, ids64, masked, "amin", include_self=True)}
-        nbytes = vals.shape[0] * (4 + 1 + 4) + ns * (4 + 1)
-        emit({"row": "fold", "case": name, "monoid": "min float32",
-              "shape": {"messages": int(vals.shape[0]),
-                        "num_segments": ns},
+            monoid=monoid), run_c(old["combine"], combine_args(vals, monoid)),
+            f"combine {name}")
+        old_call = combine_args(vals, monoid)
+        fns = {"old": lambda a=old_call: run_c(old["combine"], a),
+               "new": lambda v=vals, m=monoid: segment_combine_cuda(
+                   v, edge_valid, gk.edge_dst_local, gk.tile_src_part,
+                   gk.part_tile_off, all_parts, k=k, q=q, edge_tile=et,
+                   monoid=m),
+               "new_plain_loads": lambda a=combine_args(
+                   vals, monoid, unaligned): run_c(_build.SEGMENT_COMBINE, a)}
+        emit({"row": "combine", "case": name,
+              "shape": {"edges": ne, "edge_tiles": nt, "k": k, "q": q},
               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+              "times": in_turns(fns, args.reps)})
+        del fns, old_call
+    del gk
+
+    # ---------------- fused ----------------
+    fk = FusedDCKernel(L, "add", torch.float32, dev, apply_weight=add_weight)
+    tiles = fk.tiles
+    if iface["fused"] == "edge_range":
+        idx, dst = global_edges(fk.tile_src_part, fk.tile_dst_part,
+                                fk.edge_src_local, fk.edge_dst_local,
+                                edge_valid, q=q, edge_tile=et, n_pad=L.n_pad)
+        part_off = torch.from_numpy(np.asarray(L.blk_off[::k], np.int64)).to(
+            dev)
+    ns = L.n_pad + 1
+    all_live = torch.ones(ns, dtype=torch.bool, device=dev)
+    plain_tiles = EdgeTiles(unaligned(tiles.edge_src_local),
+                            unaligned(tiles.edge_dst_local), *tiles[2:])
+    plain_valid, plain_w = unaligned(edge_valid), unaligned(fk.edge_w)
+
+    def old_fused(table, monoid, fn, w):
+        if iface["fused"] == "this":
+            return new_fused(table, monoid, fn, w)
+        acc = torch.empty(ns, dtype=table.dtype, device=dev)
+        touched = torch.empty(ns, dtype=torch.bool, device=dev)
+        args = (table.data_ptr(), all_live.data_ptr(), ns, idx.data_ptr(),
+                edge_valid.data_ptr(), dst.data_ptr(),
+                w.data_ptr() if fn else None, part_off.data_ptr(), k, q,
+                min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
+                _build.dtype_code(table.dtype), int(fn is not None),
+                acc.data_ptr(), touched.data_ptr(), stream())
+        return args, (acc, touched)
+
+    def new_fused(table, monoid, fn, w, plain=False):
+        tl, ev, wt = ((plain_tiles, plain_valid, plain_w) if plain
+                      else (tiles, edge_valid, w))
+        acc = torch.empty(ns, dtype=table.dtype, device=dev)
+        touched = torch.empty(ns, dtype=torch.bool, device=dev)
+        args = (table.data_ptr(), all_live.data_ptr(), ns,
+                tl.edge_src_local.data_ptr(), tl.edge_dst_local.data_ptr(),
+                ev.data_ptr(), wt.data_ptr() if fn else None,
+                tl.tile_src_part.data_ptr(), tl.part_tile_off.data_ptr(), k,
+                q, et, min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
+                _build.dtype_code(table.dtype), int(fn is not None),
+                acc.data_ptr(), touched.data_ptr(), stream())
+        return args, (acc, touched)
+
+    nbytes = ns * 5 + ne * (4 + 4 + 1) + nt * 4 + (k + 1) * 8 + ns * 5
+    for name, dname, monoid, fn in (
+            *((c[0], c[1], c[2], None) for c in cases),
+            ("f32_min_add_weight", "f32", "min", add_weight)):
+        table = payload(ns, dtypes[dname])
+        w_chk = w_int if fn else None
+        check_equal(fused_dc_cuda(table, all_live, edge_valid, ns, monoid,
+                                  tiles, apply_weight=fn, w=w_chk),
+                    run_c(old["fused"], old_fused(table, monoid, fn, w_chk)),
+                    f"fused {name}")
+        w = fk.edge_w
+        fns = {"old": lambda a=old_fused(table, monoid, fn, w):
+               run_c(old["fused"], a),
+               "new": lambda t=table, m=monoid, f=fn: fused_dc_cuda(
+                   t, all_live, edge_valid, ns, m, tiles, apply_weight=f,
+                   w=w if f else None),
+               "new_plain_loads": lambda a=new_fused(
+                   table, monoid, fn, w, plain=True):
+               run_c(_build.FUSED_DC, a)}
+        extra_bytes = ne * 4 if fn else 0
+        emit({"row": "fused", "case": name,
+              "shape": {"table": ns, "edges": ne, "edge_tiles": nt, "k": k,
+                        "q": q},
+              "bytes": nbytes + extra_bytes,
+              "bound_ms": bound_ms(nbytes + extra_bytes),
               "times": in_turns(fns, args.reps)})
 
     Path(args.report).parent.mkdir(parents=True, exist_ok=True)
     Path(args.report).write_text(json.dumps(report, indent=1))
     return 0
-
-
-def c_call(kernel, args):
-    """A call of ``kernel``'s bare C entry on ``args``, converted to C
-    once."""
-    fn = kernel._fn
-    cargs = [t(a) for t, a in zip(kernel.argtypes, args)]
-    if fn(*cargs) != 0:
-        raise SystemExit(f"ab_torch_kernels: {kernel.name} failed")
-    return lambda: fn(*cargs)
 
 
 def check_equal(got, want, what):
