@@ -35,9 +35,15 @@ Phases, in order; each prints lines that start with its name:
            f32 add beside control rows on the same edges (i32 add, f32 min,
            plain loads; SSSP's f32 min with ``add_weight``).  The segment
            fold is timed on the main path's SC stream into n_pad + 1 and
-           into 4096 segments, and at the tuner's ``fold2`` shape.  Then the
-           composed DC step of PageRank timed whole and by part, its
-           plain-torch slot gather included.
+           into 4096 segments, and at the tuner's ``fold2`` shape.
+           ``dc_gather`` is checked in both of its regimes (staged, on the
+           pieces ``ScatterKernel`` binds, and L2, without them) and timed
+           through ``ScatterKernel``, beside control rows that name their
+           regime (half the sources active, the L2 regime at the same shape,
+           and ``torch.index_select`` of x over the slots' sources as a
+           yardstick of a gather alone).  Then the composed DC step of
+           PageRank timed whole and by part, its plain-torch slot gather
+           included.
   apps     BFS and SSSP from the highest-degree vertex, CC on the
            symmetrized graph and PageRank (10 iterations through
            ``run_fused``, and 10 through ``run`` for per-iteration times),
@@ -46,7 +52,8 @@ Phases, in order; each prints lines that start with its name:
            bit-exact with the kernel run.  Then the same runs on the
            composed DC path (``REPRO_FUSED=0``: scatter into the bins, then
            gather), bit-exact with the fused runs (PageRank within L1
-           1e-6).  Each path's kernels must have been launched by its runs.
+           1e-6).  Each path's kernels must have been launched by its runs,
+           and every ``dc_gather`` launch of the composed runs staged.
            An engine's set-up on each DC lowering, whole and split into
            its host check, the fused kernel's check on the card, its
            host-to-card copies and the rest.
@@ -448,35 +455,77 @@ def main() -> int:
                               "by_stream": fold_rows}
 
     # The composed DC path's kernels, at the shapes of its PageRank step:
-    # every partition in DC mode, every source live.
+    # every partition in DC mode, every source live.  dc_gather is checked
+    # in both of its regimes (staged on the pieces ScatterKernel binds, L2
+    # without them) and timed through ScatterKernel, the engine's path.
     k, q = L.k, L.q
     nm = L.num_msgs
     sk = ScatterKernel(L, "add", torch.float32, dev)
+    check(sk.pieces is not None, "the layout's slot tiles gave no pieces")
     scat = (sk.png_src_local, sk.png_valid, sk.png_tile_part)
     geo = dict(k=k, q=q, msg_tile=L.msg_tile)
+    regimes = _build.DC_GATHER.regimes
+
+    def regime_of(fn):
+        """The regime of dc_gather that one call of ``fn`` launched."""
+        before = dict(regimes)
+        fn()
+        moved = [r for r in regimes if regimes[r] != before[r]]
+        check(len(moved) == 1, f"dc_gather regimes moved: {moved}")
+        return moved[0]
+
     gather_err = 0.0
-    for monoid in MONOIDS:
-        for dname, dtype in dtypes.items():
-            x = payload(n_pad, dtype).view(k, q)
-            act = (torch.rand(n_pad, generator=gen, device=dev)
-                   < 0.5).view(k, q)
-            gather_err = max(gather_err, max_abs_err(
-                (dc_gather(x, act, *scat, monoid=monoid, **geo),),
-                (ref_dc_gather(x, act, *scat, monoid=monoid, **geo),),
-                f"dc_gather {monoid} {dname}"))
-    x = payload(n_pad, torch.float32).view(k, q)
-    act = torch.ones((k, q), dtype=torch.bool, device=dev)
+    for pieces, regime in ((sk.pieces, "staged"), (None, "l2")):
+        for monoid in MONOIDS:
+            for dname, dtype in dtypes.items():
+                x = payload(n_pad, dtype).view(k, q)
+                act = (torch.rand(n_pad, generator=gen, device=dev)
+                       < 0.5).view(k, q)
+                got = []
+                check(regime_of(lambda: got.append(dc_gather(
+                    x, act, *scat, monoid=monoid, pieces=pieces, **geo)))
+                    == regime, f"dc_gather did not take its {regime} regime")
+                gather_err = max(gather_err, max_abs_err(
+                    (got[0],),
+                    (ref_dc_gather(x, act, *scat, monoid=monoid, **geo),),
+                    f"dc_gather {regime} {monoid} {dname}"))
+    x_flat = payload(n_pad, torch.float32)
+    live = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    half = torch.rand(n_pad, generator=gen, device=dev) < 0.5
+    x, act = x_flat.view(k, q), live.view(k, q)
+    # the yardstick: a gather of x over the slots' global sources (pads
+    # name their tile's partition's vertex 0), without the select
+    png_src = (sk.png_tile_part.repeat_interleave(L.msg_tile) * q
+               + sk.png_src_local)
+    bins = torch.empty(nm, device=dev)
+
+    def gather_times(fn):
+        return {"regime": regime_of(fn), **kernel_times(fn, 20)}
+
     gather_bytes = nm * (4 + 1 + 4) + (nm // L.msg_tile) * 4 + n_pad * (4 + 1)
     report["dc_gather"] = {
         "shape": {"slots": nm, "slot_tiles": nm // L.msg_tile, "k": k,
-                  "q": q},
-        "case": "add float32, all sources live", "max_abs_err": gather_err,
-        **kernel_times(lambda: dc_gather(x, act, *scat, **geo), 20),
+                  "q": q, "pieces": int(sk.pieces.numel() - 1)},
+        "case": "add float32, all sources live, through ScatterKernel",
+        "max_abs_err": gather_err, **gather_times(lambda: sk(x_flat, live)),
         "plain_ms": median_ms(lambda: ref_dc_gather(x, act, *scat, **geo),
                               3),
         "library_ms": None, "bytes": gather_bytes,
-        "bound_ms": bound_ms(gather_bytes)}
+        "bound_ms": bound_ms(gather_bytes),
+        "controls": {
+            "staged_half_active": gather_times(lambda: sk(x_flat, half)),
+            "l2": gather_times(lambda: dc_gather(x, act, *scat, **geo)),
+            "l2_half_active": gather_times(lambda: dc_gather(
+                x, half.view(k, q), *scat, **geo)),
+            "index_select": {"regime": None, **kernel_times(
+                lambda: torch.index_select(x_flat, 0, png_src), 20)},
+            # the card's rate on a plain stream of this size: png_src_local
+            # copied into a bins-sized buffer (8 B a slot of the kernel's 9)
+            "stream_copy": {"regime": None, **kernel_times(
+                lambda: bins.copy_(sk.png_src_local.view(torch.float32)),
+                20)}}}
     say("kernels", name="dc_gather", **report["dc_gather"])
+    del png_src, half, bins
 
     gk = GatherKernel(L, "add", torch.float32, dev)
     geo = dict(k=k, q=q, edge_tile=L.edge_tile)
@@ -798,6 +847,11 @@ def main() -> int:
               f"kernel {name} was not launched by the composed path's apps")
     check(composed_launches["fused_dc"] == 0,
           "the composed path launched the fused DC kernel")
+    report["dc_gather_regimes_composed"] = dict(_build.DC_GATHER.regimes)
+    say("apps", path="composed",
+        dc_gather_regimes=report["dc_gather_regimes_composed"])
+    check(_build.DC_GATHER.regimes["staged"] == composed_launches["dc_gather"],
+          "the composed apps' dc_gather launches were not all staged")
     report["oracles_composed"] = check_oracles(composed_res, " (composed)")
     for name, key in (("bfs", "level"), ("bfs", "parent"), ("sssp", "dist"),
                       ("cc", "label")):
@@ -860,8 +914,9 @@ def main() -> int:
                 "library_ms": rec["library_ms"]}
 
     def controls(rec):
-        """The same edges' control rows, by their times."""
-        return {name: {key: c[key] for key in ("ms", "device_ms")}
+        """The same inputs' control rows, by their times (and regimes)."""
+        return {name: {key: c[key] for key in ("regime", "ms", "device_ms")
+                       if key in c}
                 for name, c in rec["controls"].items()}
 
     kernels = [
@@ -872,9 +927,11 @@ def main() -> int:
         row("segment_fold", "segment_fold.cu", "fold_two_level.py:158",
             launches["segment_fold"], fold_err, fold_rows["n_pad_plus_1"],
             fold_rows["n_pad_plus_1"]["bound_ms"]),
-        row("dc_gather", "dc_gather.cu", "dc_gather.py:62",
-            composed_launches["dc_gather"], gather_err, report["dc_gather"],
-            report["dc_gather"]["bound_ms"]),
+        dict(row("dc_gather", "dc_gather.cu", "dc_gather.py:62",
+                 composed_launches["dc_gather"], gather_err,
+                 report["dc_gather"], report["dc_gather"]["bound_ms"]),
+             regime=report["dc_gather"]["regime"],
+             controls=controls(report["dc_gather"])),
         dict(row("segment_combine", "segment_combine.cu",
                  "segment_combine.py:122",
                  composed_launches["segment_combine"], combine_err,

@@ -2,74 +2,339 @@
 //
 // Replaces the Pallas kernel repro.kernels.dc_gather.dc_gather
 // (src/repro/kernels/dc_gather.py:62).  Python side:
-// repro_torch/kernels/dc_gather.py (dc_gather_cuda).
+// repro_torch/kernels/dc_gather.py (dc_gather_cuda, dc_pieces).
 //
 // Slot s of the [NM] bins gets x[p * q + png_src_local[s]], with
 // p = png_tile_part[s / msg_tile] the source partition of its slot tile, when
 // png_valid[s] and that source is active, and the monoid identity otherwise.
+// A source outside [0, k*q) (a malformed layout) writes the identity.  The
+// output is a pure select of 4-byte words, so the kernel moves bits (uint32)
+// and takes the identity's bit pattern from the wrapper; one kernel serves
+// every monoid and dtype.
 //
 // What bounds it on this card: bytes.  Each slot reads png_src_local (4 B)
 // and png_valid (1 B) and writes its value (4 B); png_tile_part is one word
-// per msg_tile slots.  The [k, q] value and activity tables (about 17 MB +
-// 4 MB at RMAT scale 22) are read at random but fit the 50 MB L2.
+// per msg_tile slots; the [k, q] value and activity tables add 5 B a vertex.
+// At RMAT scale 22 that is 274.5 MB, 0.082 ms at 3.35 TB/s.  What the bound
+// leaves out: each slot's source is a random read.  Within a bin the slots
+// hold ascending sources about q / (slots per bin) apart (about 19 at scale
+// 22), so read through L2 each slot costs about one 32-byte sector of x and
+// half a sector of active: some 50 B of L2 traffic beside its 9 B of stream.
 //
-// Design: the output is a pure select of 4-byte words, so the kernel moves
-// bits (uint32) and takes the identity's bit pattern from the wrapper; one
-// kernel serves every monoid and dtype.  One thread per slot in a grid-stride
-// loop: neighbouring threads read and write neighbouring slots, so the three
-// streams coalesce.  The TPU kernel's per-tile BlockSpec that brings the
-// source partition's row into VMEM is not carried over: each slot computes
-// its global source id itself and the row is read through L2.  A source id
-// outside [0, k*q) (a malformed layout) writes the identity.
+// Design: two regimes, chosen here by shape.
+//
+//   * staged (the TPU kernel's BlockSpec, which keeps the source partition's
+//     rows in VMEM): the wrapper passes pieces, runs of consecutive slot
+//     tiles that share one source partition (dc_pieces on the host, once per
+//     layout).  One block takes one piece: one thread copies the partition's
+//     rows x[p, :] and active[p, :] (5q B) into shared memory with two bulk
+//     asynchronous copies (cp.async.bulk, completing on an mbarrier), and
+//     the block streams its slots meanwhile: each thread loads its first
+//     slots before it waits for the rows, then reads every source from shared
+//     memory.  The rows arrive while the block checks that every tile of its
+//     piece names the piece's partition; a piece that fails the check (pieces
+//     built for another png_tile_part, or a partition outside [0, k)) takes
+//     the L2 regime's loop for its slots, so any pieces that cover the tiles
+//     once give the same bins.  Needs q % 16 == 0 (rows start and end on
+//     16-byte boundaries), x and active 16-byte aligned, and 5q + 8 B of
+//     shared memory: q <= 46,480 (kMaxStagedQ).  At q = 32,768 a block takes
+//     163,848 B, so one block per SM, 1,024 threads.
+//   * L2 (no pieces, or a shape the staged regime cannot take): a grid-stride
+//     loop over the slots that reads each source through L2.  Both of a
+//     slot's reads (x and active) are issued before either is used, and the
+//     slot stream is read and written with evict-first hints, so that x and
+//     active stay in L2.
+//
+// How a thread takes its slots.  Staged: four consecutive slots at a time
+// (a 16-byte load of png_src_local, a 4-byte load of png_valid, a 16-byte
+// store) where msg_tile % 4 == 0 and those arrays are aligned, so four
+// slots never straddle a tile; one at a time otherwise; kUnroll of either
+// loaded before the thread selects.  L2: one slot a pass, thread t of T
+// taking t, t + T, ..., so that each gather instruction of a warp covers 32
+// consecutive slots, whose sources lie close together in one row.  Measured
+// at RMAT scale 22 on an H100 (PERF.md), more slots a thread made the L2 regime
+// slower, not faster: two or eight in flight 2 % and 27 % slower, four
+// consecutive ones (whose 32 sources an instruction spreads four times as
+// wide) 66 % slower.  Slot indices are 32-bit where nm allows; only the L2
+// regime divides (by msg_tile, for a slot's tile).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_stream.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+using edge_stream::bulk_copy;
+using edge_stream::mbar_arrive_expect_tx;
+using edge_stream::mbar_init;
+using edge_stream::mbar_wait;
 
-__global__ void __launch_bounds__(kThreads) dc_gather_kernel(
-    const uint32_t* __restrict__ x, const uint8_t* __restrict__ active,
-    const int* __restrict__ png_src_local,
-    const uint8_t* __restrict__ png_valid,
-    const int* __restrict__ png_tile_part, long long nm, int k, int q,
-    int msg_tile, uint32_t ident, uint32_t* __restrict__ out) {
-  for (long long s = (long long)blockIdx.x * kThreads + threadIdx.x; s < nm;
-       s += (long long)gridDim.x * kThreads) {
-    const uint8_t ok = png_valid[s];
-    const int local = png_src_local[s];
-    const int part = png_tile_part[s / msg_tile];
-    uint32_t v = ident;
-    if (ok && local >= 0 && local < q && part >= 0 && part < k) {
-      const long long src = (long long)part * q + local;
-      if (active[src]) v = x[src];
-    }
-    out[s] = v;
+constexpr int kStagedThreads = 1024;
+constexpr int kL2Threads = 256;
+constexpr int kL2BlocksPerSM = 8;
+constexpr int kUnroll = 4;   // staged: slots (four-slot groups with VEC)
+                             // a thread loads before it waits or selects
+constexpr int kMaxSmem = 232448;     // a block's dynamic shared memory
+constexpr int kMaxStagedQ = 46480;   // largest q % 16 == 0 with 5q + 8 <= it
+constexpr int kRegimeL2 = 0, kRegimeStaged = 1;
+
+// Shared bytes of the staged regime: x's row, active's row, the mbarrier.
+__host__ __device__ constexpr long long staged_bytes(long long q) {
+  return 5 * q + 8;
+}
+static_assert(staged_bytes(kMaxStagedQ) <= kMaxSmem &&
+                  staged_bytes(kMaxStagedQ + 16) > kMaxSmem &&
+                  kMaxStagedQ % 16 == 0,
+              "kMaxStagedQ is the widest row pair one block can stage");
+
+struct Args {
+  const uint32_t* x;
+  const uint8_t* active;
+  const int* src_local;
+  const uint8_t* valid;
+  const int* tile_part;
+  uint32_t* out;
+  int k, q, msg_tile;
+  uint32_t ident;
+};
+
+// Read-only gathers that the compiler may neither drop nor predicate on each
+// other, so that a slot's two reads go out together.
+__device__ __forceinline__ uint32_t ld_u32(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_u8(const uint8_t* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u8 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
+}
+
+// One slot through L2.  `ok` is its png_valid byte.
+__device__ __forceinline__ uint32_t slot_l2(const Args& a, int part,
+                                            int local, uint32_t ok) {
+  const bool inside = (unsigned)local < (unsigned)a.q &&
+                      (unsigned)part < (unsigned)a.k;
+  const long long src = inside ? (long long)part * a.q + local : 0;
+  const uint32_t act = ld_u8(a.active + src);
+  const uint32_t v = ld_u32(a.x + src);
+  return ok != 0 && act != 0 && inside ? v : a.ident;
+}
+
+// One slot from the staged rows.
+__device__ __forceinline__ uint32_t slot_staged(const Args& a,
+                                                const uint32_t* s_x,
+                                                const uint8_t* s_act,
+                                                int local, uint32_t ok) {
+  const bool inside = (unsigned)local < (unsigned)a.q;
+  const int i = inside ? local : 0;
+  return ok != 0 && s_act[i] != 0 && inside ? s_x[i] : a.ident;
+}
+
+// Slots [s0, s1) through L2: thread `tid` of `nthreads` takes slots tid,
+// tid + nthreads, ..., one per pass, so that each gather instruction of a
+// warp covers 32 consecutive slots.
+template <typename Index>
+__device__ void l2_range(const Args& a, Index s0, Index s1, Index tid,
+                         Index nthreads) {
+  const Index mt = (Index)a.msg_tile;
+  for (Index s = s0 + tid; s < s1; s += nthreads) {
+    const int local = __ldcs(a.src_local + s);
+    const uint32_t ok = __ldcs(a.valid + s);
+    const int part = __ldg(a.tile_part + s / mt);
+    __stcs(a.out + s, slot_l2(a, part, local, ok));
   }
+}
+
+template <typename Index>
+__global__ void __launch_bounds__(kL2Threads) l2_kernel(Args a, Index nm) {
+  l2_range<Index>(a, 0, nm, (Index)blockIdx.x * kL2Threads + threadIdx.x,
+                  (Index)gridDim.x * kL2Threads);
+}
+
+// One block per piece: tiles [piece_tiles[b], piece_tiles[b + 1]).  With
+// VEC, a thread takes four consecutive slots at a time.
+template <typename Index, bool VEC>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+    staged_kernel(Args a, const long long* __restrict__ piece_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t0 = piece_tiles[blockIdx.x];
+  const long long t1 = piece_tiles[blockIdx.x + 1];
+  if (t1 <= t0) return;
+  const int q = a.q;
+  uint32_t* s_x = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* s_act = smem + 4 * (size_t)q;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 5 * (size_t)q);
+  const int part = __ldg(a.tile_part + t0);
+  const bool live = (unsigned)part < (unsigned)a.k;
+  if (threadIdx.x == 0 && live) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && live) {
+    mbar_arrive_expect_tx(bar, 5u * (uint32_t)q);
+    bulk_copy(s_x, a.x + (size_t)part * q, 4u * (uint32_t)q, bar);
+    bulk_copy(s_act, a.active + (size_t)part * q, (uint32_t)q, bar);
+  }
+  // while the rows are in flight: does every tile name this partition?
+  int same = 1;
+  for (long long t = t0 + threadIdx.x; t < t1; t += kStagedThreads)
+    same &= __ldg(a.tile_part + t) == part;
+  const bool staged = __syncthreads_and(same) && live;
+  const Index s0 = (Index)(t0 * a.msg_tile), s1 = (Index)(t1 * a.msg_tile);
+  if (!staged) {
+    l2_range<Index>(a, s0, s1, threadIdx.x, kStagedThreads);
+    if (live) mbar_wait(bar, 0);   // no copy may land after the block ends
+    return;
+  }
+  // each thread loads its first slots, then waits for the rows
+  bool arrived = false;
+  if constexpr (VEC) {
+    const int4* loc4 = reinterpret_cast<const int4*>(a.src_local);
+    const uint32_t* ok4 = reinterpret_cast<const uint32_t*>(a.valid);
+    uint4* out4 = reinterpret_cast<uint4*>(a.out);
+    const Index g1 = s1 / 4;
+    for (Index g0 = s0 / 4 + threadIdx.x; g0 < g1;
+         g0 += kStagedThreads * kUnroll) {
+      int4 l[kUnroll];
+      uint32_t ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const Index g = g0 + u * kStagedThreads;
+        if (g < g1) {
+          l[u] = __ldcs(loc4 + g);
+          ok[u] = __ldcs(ok4 + g);
+        }
+      }
+      if (!arrived) {
+        mbar_wait(bar, 0);
+        arrived = true;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const Index g = g0 + u * kStagedThreads;
+        if (g < g1) {
+          uint4 v;
+          v.x = slot_staged(a, s_x, s_act, l[u].x, ok[u] & 0xffu);
+          v.y = slot_staged(a, s_x, s_act, l[u].y, (ok[u] >> 8) & 0xffu);
+          v.z = slot_staged(a, s_x, s_act, l[u].z, (ok[u] >> 16) & 0xffu);
+          v.w = slot_staged(a, s_x, s_act, l[u].w, ok[u] >> 24);
+          __stcs(out4 + g, v);
+        }
+      }
+    }
+  } else {
+    for (Index f = s0 + threadIdx.x; f < s1; f += kStagedThreads * kUnroll) {
+      int l[kUnroll];
+      uint32_t ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const Index s = f + u * kStagedThreads;
+        if (s < s1) {
+          l[u] = __ldcs(a.src_local + s);
+          ok[u] = __ldcs(a.valid + s);
+        }
+      }
+      if (!arrived) {
+        mbar_wait(bar, 0);
+        arrived = true;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const Index s = f + u * kStagedThreads;
+        if (s < s1)
+          __stcs(a.out + s, slot_staged(a, s_x, s_act, l[u], ok[u]));
+      }
+    }
+  }
+  if (!arrived) mbar_wait(bar, 0);
+}
+
+bool aligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
+}
+
+template <typename Index, bool VEC>
+cudaError_t launch(const Args& a, const long long* piece_tiles,
+                   long long n_pieces, long long nm, int dev,
+                   cudaStream_t stream) {
+  if (piece_tiles != nullptr) {
+    auto kernel = staged_kernel<Index, VEC>;
+    // per host thread and instantiation: the shared-memory limit is raised
+    // once for each device it meets
+    thread_local int raised_dev = -1;
+    if (raised_dev != dev) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return err;
+      raised_dev = dev;
+    }
+    kernel<<<(unsigned)n_pieces, kStagedThreads, staged_bytes(a.q), stream>>>(
+        a, piece_tiles);
+  } else {
+    thread_local int sms_dev = -1, sms = 0;
+    if (sms_dev != dev) {
+      cudaError_t err =
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return err;
+      sms_dev = dev;
+    }
+    const long long want = (nm + kL2Threads - 1) / kL2Threads;
+    const long long most = (long long)sms * kL2BlocksPerSM;
+    l2_kernel<Index><<<(unsigned)(want < most ? want : most), kL2Threads, 0,
+                       stream>>>(a, (Index)nm);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
-// x holds k*q four-byte values, active k*q bytes.
+// Returns 0 or a cudaError_t, and sets *regime to the regime it launched
+// (0: L2, 1: staged).  Pointers are device pointers on the current device,
+// whose index is `device`; x holds k*q four-byte values, active k*q bytes.
+// piece_tiles is null (the L2 regime) or holds n_pieces + 1 ascending tile
+// offsets from 0 to nm / msg_tile (dc_pieces); it is used where the shape
+// allows the staged regime.
 extern "C" int dc_gather(const void* x, const void* active,
                          const void* png_src_local, const void* png_valid,
-                         const void* png_tile_part, long long nm, int k, int q,
+                         const void* png_tile_part, const void* piece_tiles,
+                         long long n_pieces, long long nm, int k, int q,
                          int msg_tile, unsigned ident_bits, void* out,
-                         void* stream) {
-  if (nm < 0 || k <= 0 || q <= 0 || msg_tile <= 0 || nm % msg_tile != 0)
+                         int device, int* regime, void* stream) {
+  if (nm < 0 || k <= 0 || q <= 0 || msg_tile <= 0 || nm % msg_tile != 0 ||
+      n_pieces < 0 || n_pieces > 0x7fffffffLL || device < 0)
     return (int)cudaErrorInvalidValue;
+  const bool staged = piece_tiles != nullptr && n_pieces > 0 &&
+                      q % 16 == 0 && q <= kMaxStagedQ && aligned(x, 16) &&
+                      aligned(active, 16);
+  *regime = staged ? kRegimeStaged : kRegimeL2;
   if (nm == 0) return 0;
-  const long long b = (nm + kThreads - 1) / kThreads;
-  const int blocks = (int)(b > kMaxBlocks ? kMaxBlocks : b);
-  dc_gather_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint8_t*>(active),
-      static_cast<const int*>(png_src_local),
-      static_cast<const uint8_t*>(png_valid),
-      static_cast<const int*>(png_tile_part), nm, k, q, msg_tile, ident_bits,
-      static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
+  const Args a{static_cast<const uint32_t*>(x),
+               static_cast<const uint8_t*>(active),
+               static_cast<const int*>(png_src_local),
+               static_cast<const uint8_t*>(png_valid),
+               static_cast<const int*>(png_tile_part),
+               static_cast<uint32_t*>(out),
+               k, q, msg_tile, ident_bits};
+  const long long* pieces =
+      staged ? static_cast<const long long*>(piece_tiles) : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // four slots a thread where they never straddle a tile and the slot
+  // arrays allow 16-byte (png_src_local, out) and 4-byte (png_valid) access
+  const bool vec = msg_tile % 4 == 0 && aligned(png_src_local, 16) &&
+                   aligned(png_valid, 4) && aligned(out, 16);
+  using I32 = uint32_t;
+  using I64 = unsigned long long;
+  const bool narrow = nm <= 0x7fffffffLL;
+  const cudaError_t err =
+      narrow ? (vec ? launch<I32, true>(a, pieces, n_pieces, nm, device, s)
+                    : launch<I32, false>(a, pieces, n_pieces, nm, device, s))
+             : (vec ? launch<I64, true>(a, pieces, n_pieces, nm, device, s)
+                    : launch<I64, false>(a, pieces, n_pieces, nm, device, s));
+  return (int)err;
 }
 
 extern "C" const char* dc_gather_error_string(int code) {

@@ -10,7 +10,9 @@ raises with the compiler's output; nothing carries on without the kernel.
 
 Every C entry point returns 0 or a ``cudaError_t``; :meth:`CudaKernel.launch`
 raises on a non-zero code and otherwise adds one to the kernel's
-``launches`` count, the evidence that a run went through the kernel.
+``launches`` count, the evidence that a run went through the kernel.  A
+kernel with regimes chosen by shape in its C entry (``dc_gather``) also
+counts its launches by regime (``CudaKernel.regimes``).
 """
 from __future__ import annotations
 
@@ -55,11 +57,15 @@ def find_nvcc() -> str:
 class CudaKernel:
     """One CUDA source, its shared library and the count of its launches."""
 
-    def __init__(self, name: str, source: str, argtypes: tuple):
+    def __init__(self, name: str, source: str, argtypes: tuple,
+                 regimes: tuple = ()):
         self.name = name
         self.source = CSRC / source
         self.argtypes = argtypes
         self.launches = 0
+        # launches by regime, for a kernel whose C entry reports the regime
+        # it chose (its code indexes ``regimes``); the wrapper counts them
+        self.regimes = dict.fromkeys(regimes, 0)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._fn = None          # the bound C entry, once loaded
@@ -118,6 +124,11 @@ class CudaKernel:
                                f"({msg})")
         self.launches += 1
 
+    def count_regime(self, code: int) -> None:
+        """Count one launch in the regime the C entry reported."""
+        name = list(self.regimes)[code]
+        self.regimes[name] += 1
+
 
 FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
     P, P, I64,          # table, table_valid, table_len
@@ -132,9 +143,12 @@ SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
     P, P, I32, P))      # acc, touched, device index, stream
 DC_GATHER = CudaKernel("dc_gather", "dc_gather.cu", (
     P, P, P, P, P,      # x, active, png_src_local, png_valid, png_tile_part
+    P, I64,             # piece_tiles, n_pieces
     I64, I32, I32, I32,  # nm, k, q, msg_tile
     ctypes.c_uint,      # ident_bits
-    P, P))              # out, stream
+    P, I32,             # out, device index
+    ctypes.POINTER(ctypes.c_int), P),  # regime (set by the call), stream
+    regimes=("l2", "staged"))
 SEGMENT_COMBINE = CudaKernel("segment_combine", "segment_combine.cu", (
     P, P, P,            # vals, valid, dst_local
     P, P, P,            # tile_src_part, part_tile_off, part_active
@@ -167,6 +181,7 @@ def build_all() -> None:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.regimes = dict.fromkeys(k.regimes, 0)
 
 
 MONOID_CODES = {"add": 0, "min": 1, "max": 2}

@@ -11,20 +11,76 @@ Two versions of one function, chosen by the device of the tensors:
   * :func:`ref_dc_gather`, the plain PyTorch version (CPU tensors; also the
     oracle that ``chip_smoke.py`` holds the kernel against on the card);
   * :func:`dc_gather_cuda`, the CUDA kernel ``csrc/dc_gather.cu`` (CUDA
-    tensors), one thread per slot moving 4-byte words.
+    tensors), which moves 4-byte words in one of two regimes that its C
+    entry chooses by shape: **staged**, where each block copies one source
+    partition's rows of ``x`` and ``active`` into shared memory and streams
+    that partition's slots against them (the TPU kernel's VMEM-resident
+    BlockSpec), and **L2**, where every slot reads its source through L2.
+    The staged regime needs the ``pieces`` of :func:`dc_pieces` (built once
+    per layout by :class:`repro_torch.kernels.ops.ScatterKernel`), ``q % 16
+    == 0`` and ``q <= 46,480`` (``kMaxStagedQ``); a call without pieces takes
+    the L2 regime.  ``_build.DC_GATHER.regimes`` counts the launches of each.
 
 A slot whose source lies outside ``[0, k*q)`` gets the identity in both.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..core import monoid as M
 from . import _build
 
+# A slot streams 9 bytes (its png_src_local, png_valid and value); staging a
+# partition's rows copies 5 bytes a vertex (x and active).
+SLOT_BYTES, ROW_BYTES_PER_VERTEX = 9, 5
 
-def _identity_bits(monoid: str, dtype: torch.dtype) -> int:
-    """The identity's 4-byte pattern as an unsigned int."""
+
+def dc_pieces(png_tile_part: np.ndarray, *, q: int, msg_tile: int,
+              blocks: int) -> Optional[np.ndarray]:
+    """The staged regime's pieces of a layout's slot tiles, or None where the
+    L2 regime is the better one.
+
+    Returns ``int64[n_pieces + 1]`` ascending tile offsets from 0 to
+    ``len(png_tile_part)``: piece ``i`` is tiles ``[off[i], off[i+1])``, and
+    every tile of a piece has the same ``png_tile_part`` entry.  The pieces
+    are the runs of equal entries (one per source partition on a layout),
+    cut until there are ``max(blocks, runs)`` of them or every piece is one
+    tile: each cut goes to the run whose pieces are largest, and a run's
+    pieces differ by at most a tile.  With ``blocks`` the card's SM count, a
+    staged block takes a whole SM (163,848 B of shared memory at q =
+    32,768), so the pieces fill the card in one wave, no SM stages two rows
+    one after the other, and the largest piece, which sets the time, is as
+    small as that allows.
+
+    None where the runs are short: the mean run's slot stream
+    (``SLOT_BYTES`` a slot) under its row's ``ROW_BYTES_PER_VERTEX * q``
+    bytes, as on a layout whose tiles are not in source-partition order."""
+    tp = np.asarray(png_tile_part)
+    ntm = len(tp)
+    if ntm == 0:
+        return None
+    starts = np.flatnonzero(np.r_[True, tp[1:] != tp[:-1]])
+    runs = np.diff(np.r_[starts, ntm])
+    if ntm * msg_tile * SLOT_BYTES < len(runs) * q * ROW_BYTES_PER_VERTEX:
+        return None
+    cuts = np.ones_like(runs)
+    for _ in range(min(blocks, ntm) - len(runs)):
+        cuts[np.argmax(runs / cuts)] += 1
+    run = np.repeat(np.arange(len(runs)), cuts)
+    j = np.arange(len(run)) - np.repeat(np.cumsum(cuts) - cuts, cuts)
+    off = starts[run] + runs[run] * j // cuts[run]
+    return np.r_[off, ntm].astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def identity_bits(monoid: str, dtype: torch.dtype) -> int:
+    """The identity's 4-byte pattern as an unsigned int (built once per
+    monoid and dtype: the composed engine calls the kernel every DC step)."""
     ident = M.full((1,), M.identity_value(monoid, dtype), dtype, "cpu")
     return int(ident.view(torch.int32)) & 0xFFFFFFFF
 
@@ -45,8 +101,14 @@ def ref_dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
 
 
 def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
-                   k: int, q: int, msg_tile: int, monoid: str = "add"):
-    """Launch ``csrc/dc_gather.cu`` on the current stream."""
+                   k: int, q: int, msg_tile: int, monoid: str = "add",
+                   pieces=None):
+    """Launch ``csrc/dc_gather.cu`` on the current stream.
+
+    ``pieces`` (``int64[n + 1]`` on the device, from :func:`dc_pieces` on
+    this ``png_tile_part``, or any ascending offsets that cover its tiles
+    once) lets the kernel take the staged regime where the shape allows;
+    without them it takes the L2 regime."""
     nm, dev = png_src_local.shape[0], x.device
     _build.check_cuda(x, "x", shape=(k, q))
     _build.dtype_code(x.dtype)
@@ -57,20 +119,31 @@ def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
         raise ValueError(f"{nm} slots are not whole tiles of {msg_tile}")
     _build.check_cuda(png_tile_part, "png_tile_part", torch.int32,
                       (nm // msg_tile,), dev)
+    n_pieces = 0
+    if pieces is not None:
+        _build.check_cuda(pieces, "pieces", torch.int64, device=dev)
+        if pieces.dim() != 1 or pieces.shape[0] < 2:
+            raise ValueError("pieces must be 1-D tile offsets, at least 2")
+        n_pieces = pieces.shape[0] - 1
     out = torch.empty(nm, dtype=x.dtype, device=dev)
     if nm:
+        regime = ctypes.c_int(-1)
         _build.DC_GATHER.launch(
             x.data_ptr(), active.data_ptr(), png_src_local.data_ptr(),
-            png_valid.data_ptr(), png_tile_part.data_ptr(), nm, k, q,
-            msg_tile, _identity_bits(monoid, x.dtype), out.data_ptr(),
-            _build.stream_handle())
+            png_valid.data_ptr(), png_tile_part.data_ptr(),
+            pieces.data_ptr() if n_pieces else None, n_pieces, nm, k, q,
+            msg_tile, identity_bits(monoid, x.dtype), out.data_ptr(),
+            dev.index, ctypes.byref(regime), _build.stream_handle(dev.index))
+        _build.DC_GATHER.count_regime(regime.value)
     return out
 
 
 def dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
-              k: int, q: int, msg_tile: int, monoid: str = "add"):
+              k: int, q: int, msg_tile: int, monoid: str = "add",
+              pieces=None):
     """Materialize the DC message bins: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors.
+    the CUDA kernel for CUDA tensors (staged with ``pieces``, see
+    :func:`dc_gather_cuda`; the plain version needs none).
 
     Args:
       x:             [k, q] per-vertex scatter values (float32, int32 or
@@ -92,5 +165,5 @@ def dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
     if kind == "cuda":
         return dc_gather_cuda(x, active, png_src_local, png_valid,
                               png_tile_part, k=k, q=q, msg_tile=msg_tile,
-                              monoid=monoid)
+                              monoid=monoid, pieces=pieces)
     raise ValueError(f"no DC scatter for device {x.device}")

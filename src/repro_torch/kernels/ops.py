@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core import monoid as M
-from .dc_gather import dc_gather, ref_dc_gather
+from .dc_gather import dc_gather, dc_pieces, ref_dc_gather
 from .fold_block import blocked_segment_fold, segment_fold
 from .fused_step import (EdgeTiles, fused_scatter_fold, global_edges,
                          ref_fused_scatter_fold)
@@ -197,7 +197,13 @@ class GatherKernel(_TileGeometry):
 
 class ScatterKernel:
     """DC scatter of the composed path bound to a layout: ``(x_flat,
-    active_flat) -> [NM]`` message bins."""
+    active_flat) -> [NM]`` message bins.
+
+    On a card, binding the layout also cuts its slot tiles into the CUDA
+    kernel's staged pieces (:func:`dc_pieces`, host NumPy over the
+    ``[NM / msg_tile]`` tile partitions, one per SM of the card or per
+    source partition); ``pieces`` stays None where the plain version runs
+    or the layout's runs are too short to stage."""
 
     def __init__(self, layout, monoid_name: str, dtype: torch.dtype, device,
                  plain: bool = False):
@@ -212,14 +218,25 @@ class ScatterKernel:
             layout.png_src < layout.n_pad).to(self.device)
         self.png_tile_part = torch.from_numpy(layout.png_tile_part).to(
             self.device)
+        self.pieces = None
+        if not plain and self.device.type == "cuda":
+            sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
+            off = dc_pieces(layout.png_tile_part, q=self.q,
+                            msg_tile=self.msg_tile, blocks=sms)
+            if off is not None:
+                self.pieces = torch.from_numpy(off).to(self.device)
 
     def __call__(self, x_flat, active_flat):
         x = x_flat.to(self.dtype).reshape(self.k, self.q)
         active = active_flat.to(torch.bool).reshape(self.k, self.q)
-        fn = ref_dc_gather if self.plain else dc_gather
-        return fn(x, active, self.png_src_local, self.png_valid,
-                  self.png_tile_part, k=self.k, q=self.q,
-                  msg_tile=self.msg_tile, monoid=self.monoid)
+        args = (x, active, self.png_src_local, self.png_valid,
+                self.png_tile_part)
+        geo = dict(k=self.k, q=self.q, msg_tile=self.msg_tile,
+                   monoid=self.monoid)
+        if self.plain:
+            return ref_dc_gather(*args, **geo)
+        return dc_gather(*args, **geo, pieces=self.pieces)
 
 
 class SpmvKernel(_TileGeometry):

@@ -16,7 +16,8 @@ import repro_torch as rt
 from repro_torch.core import monoid as M
 from repro_torch.graph import build_layout, from_edges, rmat, symmetrize
 from repro_torch.kernels import _build
-from repro_torch.kernels.dc_gather import dc_gather_cuda, ref_dc_gather
+from repro_torch.kernels.dc_gather import (dc_gather_cuda, dc_pieces,
+                                           ref_dc_gather)
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
                                             fused_dc_cuda, global_edges,
@@ -237,6 +238,108 @@ def test_dc_gather_kernel_matches_plain(dev, layouts, monoid, dtype, layout):
     torch.cuda.synchronize()
     assert _build.DC_GATHER.launches == before + 1
     _assert_bit_exact((got,), (plain(x, active),))
+
+
+@pytest.fixture(scope="module")
+def row_layouts(layouts):
+    """Layouts for the regimes of ``dc_gather.cu``: k = 2 at the largest q
+    its staged regime takes (``kMaxStagedQ`` = 46,480) and at the next
+    multiple of 16 (its shared memory would pass 232,448 B), and msg_tile 30
+    (not a multiple of 4: one slot at a time)."""
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, n in (("q46480", 92960), ("q46496", 92992)):
+        src = np.repeat(np.arange(n), 4)
+        g = from_edges(src, rng.integers(0, n, len(src)), n=n, dedup=True)
+        out[name] = build_layout(g, k=2, q_mult=16, edge_tile=64,
+                                 msg_tile=32)
+    g = rmat(11, 8, seed=3, weighted=True)
+    out["mt30"] = build_layout(g, k=8, edge_tile=64, msg_tile=30)
+    assert (out["q46480"].q, out["q46496"].q) == (46480, 46496)
+    return out
+
+
+# case: (layout, the regime its shape takes)
+DC_CASES = {"rmat": ("rmat", "staged"), "et128": ("et128", "staged"),
+            "et1024": ("et1024", "staged"), "wide": ("wide", "l2"),
+            "q46480": ("q46480", "staged"), "q46496": ("q46496", "l2"),
+            "shuffled": ("rmat", "l2"), "mt30": ("mt30", "staged"),
+            "unaligned": ("rmat", "staged"), "malformed": ("rmat", "staged")}
+
+
+def _dc_slot_arrays(rng, case, L, kern, dev):
+    """The slot arrays and pieces of one case, from the layout's."""
+    local, valid, tile_part = (kern.png_src_local, kern.png_valid,
+                               kern.png_tile_part)
+    pieces = [kern.pieces]
+    if case == "shuffled":   # no long runs: no pieces
+        tp = rng.permutation(L.png_tile_part)
+        assert dc_pieces(tp, q=L.q, msg_tile=L.msg_tile, blocks=132) is None
+        tile_part, pieces = torch.from_numpy(tp).to(dev), [None]
+    elif case == "unaligned":   # the slot arrays off a 16-byte boundary
+        local, valid = _unaligned(local), _unaligned(valid)
+    elif case == "malformed":
+        # sources outside [0, q), and three tiles outside [0, k): pieces
+        # built for them, and the layout's own (which the kernel finds do
+        # not match and reads through L2)
+        lc = L.png_src_local.copy()
+        bad = rng.random(len(lc)) < 0.05
+        lc[bad] = rng.choice([-1, -L.q, L.q, L.q + 7], int(bad.sum()))
+        tp = L.png_tile_part.copy()
+        tp[rng.choice(len(tp), 3, replace=False)] = [-1, L.k, L.k + 5]
+        local, tile_part = (torch.from_numpy(a).to(dev) for a in (lc, tp))
+        own = dc_pieces(tp, q=L.q, msg_tile=L.msg_tile, blocks=132)
+        assert own is not None
+        pieces = [torch.from_numpy(own).to(dev), kern.pieces]
+    return (local, valid, tile_part), pieces
+
+
+@pytest.mark.parametrize("case", sorted(DC_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("monoid", MONOIDS)
+def test_dc_gather_regimes_match_plain(dev, layouts, row_layouts, monoid,
+                                       dtype, case):
+    """``dc_gather.cu`` in both regimes, bit-exact with the plain version,
+    with every source, half of them and none active; the regime counter
+    moves as the shape says (staged: the layout's pieces, q % 16 == 0 and q
+    <= 46,480; L2: no pieces, or a q past that)."""
+    name, regime = DC_CASES[case]
+    L = {**layouts, **row_layouts}[name]
+    rng = np.random.default_rng(13)
+    kern = ScatterKernel(L, monoid, DTYPES[dtype], dev)
+    if case in ("q46496", "rmat"):   # pieces exist: q alone decides
+        assert kern.pieces is not None
+    slots, pieces = _dc_slot_arrays(rng, case, L, kern, dev)
+    geo = dict(k=L.k, q=L.q, msg_tile=L.msg_tile, monoid=monoid)
+    for density in (1.0, 0.5, 0.0):
+        x = _payload(rng, L.n_pad, DTYPES[dtype], dev).view(L.k, L.q)
+        active = torch.from_numpy(rng.random(L.n_pad) < density).to(
+            dev).view(L.k, L.q)
+        want = ref_dc_gather(x, active, *slots, **geo)
+        for p in pieces:
+            before = dict(_build.DC_GATHER.regimes)
+            got = dc_gather_cuda(x, active, *slots, **geo, pieces=p)
+            torch.cuda.synchronize()
+            moved = {r: _build.DC_GATHER.regimes[r] - before[r]
+                     for r in before}
+            assert moved == {"l2": int(regime == "l2"),
+                             "staged": int(regime == "staged")}
+            _assert_bit_exact((got,), (want,))
+
+
+def test_dc_gather_checks_its_pieces(dev, layouts):
+    L = layouts["rmat"]
+    kern = ScatterKernel(L, "add", torch.float32, dev)
+    x = torch.zeros((L.k, L.q), device=dev)
+    args = (x, torch.ones_like(x, dtype=torch.bool), kern.png_src_local,
+            kern.png_valid, kern.png_tile_part)
+    geo = dict(k=L.k, q=L.q, msg_tile=L.msg_tile)
+    with pytest.raises(TypeError):
+        dc_gather_cuda(*args, **geo, pieces=kern.pieces.to(torch.int32))
+    with pytest.raises(ValueError):
+        dc_gather_cuda(*args, **geo, pieces=kern.pieces.cpu())
+    with pytest.raises(ValueError):
+        dc_gather_cuda(*args, **geo, pieces=kern.pieces[:1])
 
 
 @pytest.mark.parametrize("layout", ["rmat", "wide", "half"])

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Time the port's tile kernels (``fused_dc``, ``segment_combine``,
-``spmv_block``) against the same kernels built from another checkout, in
-turns, on one NVIDIA GPU.
+``spmv_block``) and ``dc_gather`` against the same kernels built from another
+checkout, in turns, on one NVIDIA GPU.
 
     python3 tools/ab_torch_kernels.py --baseline DIR [--scale 22] [--seed 0]
         [--rounds 2] [--report results/ab_torch_kernels.json]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``); its ``src/repro_torch/csrc/
-fused_dc.cu``, ``segment_combine.cu`` and ``spmv_block.cu`` are built beside
-this tree's.  Each baseline kernel is called through the C interface its own
-source declares, which must be one this tool knows: this tree's, or, for
-``fused_dc``, the edge-range form it had before it read the tile form (the
-global ``idx`` and ``dst`` and the partitions' edge offsets, built here once
-on the card from the layout).  Any other interface is refused.  To time a
+fused_dc.cu``, ``segment_combine.cu``, ``spmv_block.cu`` and ``dc_gather.cu``
+are built beside this tree's.  Each baseline kernel is called through the C
+interface its own source declares, which must be one this tool knows: this
+tree's; for ``fused_dc``, the edge-range form it had before it read the tile
+form (the global ``idx`` and ``dst`` and the partitions' edge offsets, built
+here once on the card from the layout); for ``dc_gather``, the slot form it
+had before its staged regime (no pieces).  Any other interface is refused.  To time a
 variant of a kernel, build it in another checkout and pass that.  The
 inputs are ``chip_smoke.py``'s: Graph500 RMAT at ``--scale`` from
 ``--seed`` with its k=128, edge_tile=256 layout.
@@ -34,6 +35,13 @@ Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
   fused     ``fused_dc`` at PageRank's step (every source live) in the same
             four cases and at SSSP's (f32 min with ``add_weight``), also
             through plain loads.
+  gather    ``dc_gather`` at PageRank's composed step (f32 add, the
+            layout's msg_tile=128 slots), every source active and half of
+            them: the baseline kernel, this tree's through the pieces
+            ``ScatterKernel`` binds (the staged regime), and this tree's
+            without them (the L2 regime), and a baseline of this tree's
+            interface without them too; each row names the regimes this
+            tree's calls took.
 
 Each time is given four ways, by ``chip_smoke.kernel_times``: ``ms``, the
 median of single calls each between two CUDA events; ``device_ms``, CUDA
@@ -46,6 +54,7 @@ on integer payloads.  The record goes to ``--report``; one line per row is
 printed, and the card's name and power limit first.
 """
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -64,6 +73,9 @@ from chip_smoke import bound_ms, kernel_times  # noqa: E402
 FUSED_EDGE_RANGE = ("table", "table_valid", "table_len", "idx", "edge_valid",
                     "dst", "w", "part_off", "k", "q", "chunk", "num_segments",
                     "monoid", "dtype", "edge_fn", "acc", "touched", "stream")
+# dc_gather's C entry before the staged regime (one thread per slot)
+GATHER_SLOTS = ("x", "active", "png_src_local", "png_valid", "png_tile_part",
+                "nm", "k", "q", "msg_tile", "ident_bits", "out", "stream")
 
 
 def c_params(source: Path, name: str) -> tuple:
@@ -80,8 +92,9 @@ def c_params(source: Path, name: str) -> tuple:
 def baseline_kernel(kern, base_csrc: Path):
     """``(kernel, interface)``: ``kern``'s C entry built from the baseline's
     source, bound with the argument types of the interface that source
-    declares: ``"this"`` (this tree's) or ``"edge_range"`` (``fused_dc``
-    before the tile form).  Refuses any other."""
+    declares: ``"this"`` (this tree's), ``"edge_range"`` (``fused_dc``
+    before the tile form) or ``"slots"`` (``dc_gather`` before its staged
+    regime).  Refuses any other."""
     from repro_torch.kernels import _build
     src = base_csrc / kern.source.name
     params = c_params(src, kern.name)
@@ -92,6 +105,10 @@ def baseline_kernel(kern, base_csrc: Path):
         return _build.CudaKernel(kern.name, str(src), (
             P, P, I64, P, P, P, P, P, I32, I32, I32, I64, I32, I32, I32, P,
             P, P)), "edge_range"
+    if kern.name == "dc_gather" and params == GATHER_SLOTS:
+        P, I64, I32 = _build.P, _build.I64, _build.I32
+        return _build.CudaKernel(kern.name, str(src), (
+            P, P, P, P, P, I64, I32, I32, I32, ctypes.c_uint, P, P)), "slots"
     raise SystemExit(f"ab_torch_kernels: the baseline's {kern.name} takes "
                      f"({', '.join(params)}), an interface this tool does not "
                      "know")
@@ -118,7 +135,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_step import (EdgeTiles, add_weight,
                                                 fused_dc_cuda, global_edges)
-    from repro_torch.kernels.ops import FusedDCKernel, GatherKernel, SpmvKernel
+    from repro_torch.kernels.dc_gather import dc_gather_cuda, identity_bits
+    from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
+                                         ScatterKernel, SpmvKernel)
     from repro_torch.kernels.segment_combine import segment_combine_cuda
     from repro_torch.kernels.spmv_block import MAX_CHUNK, spmv_block_cuda
 
@@ -134,7 +153,8 @@ def main() -> int:
     old, iface = {}, {}
     for key, kern in (("spmv", _build.SPMV_BLOCK),
                       ("combine", _build.SEGMENT_COMBINE),
-                      ("fused", _build.FUSED_DC)):
+                      ("fused", _build.FUSED_DC),
+                      ("gather", _build.DC_GATHER)):
         old[key], iface[key] = baseline_kernel(kern, base_csrc)
     report["baseline_interfaces"] = iface
     started = [k.start_build() for k in old.values()]
@@ -361,6 +381,63 @@ def main() -> int:
                         "q": q},
               "bytes": nbytes + extra_bytes,
               "bound_ms": bound_ms(nbytes + extra_bytes),
+              "times": in_turns(fns, args.reps)})
+
+    del fk, tiles, plain_tiles, plain_valid, plain_w
+
+    # ---------------- gather ----------------
+    sk = ScatterKernel(L, "add", torch.float32, dev)
+    slots = (sk.png_src_local, sk.png_valid, sk.png_tile_part)
+    nm, mt = L.num_msgs, L.msg_tile
+    ident = identity_bits("add", torch.float32)
+    x = payload(L.n_pad).view(k, q)
+    regimes = _build.DC_GATHER.regimes
+
+    def old_gather(active, pieces=None):
+        """The baseline's launch arguments for one call, and its output."""
+        out = torch.empty(nm, device=dev)
+        ptrs = (x.data_ptr(), active.data_ptr(),
+                *(a.data_ptr() for a in slots))
+        if iface["gather"] == "slots":
+            args = (*ptrs, nm, k, q, mt, ident, out.data_ptr(), stream())
+        else:
+            args = (*ptrs, pieces.data_ptr() if pieces is not None else None,
+                    pieces.numel() - 1 if pieces is not None else 0, nm, k,
+                    q, mt, ident, out.data_ptr(), x.device.index,
+                    ctypes.byref(ctypes.c_int()), stream())
+        return args, out
+
+    def new_gather(active, pieces):
+        return dc_gather_cuda(x, active, *slots, k=k, q=q, msg_tile=mt,
+                              pieces=pieces)
+
+    def regime_of(fn):
+        before = dict(regimes)
+        fn()
+        return [r for r in regimes if regimes[r] != before[r]]
+
+    nbytes = nm * (4 + 1 + 4) + (nm // mt) * 4 + L.n_pad * (4 + 1)
+    for name, density in (("f32_add_all_live", 1.0),
+                          ("f32_add_half_active", 0.5)):
+        active = (torch.rand(L.n_pad, generator=gen, device=dev)
+                  < density).view(k, q)
+        want = run_c(old["gather"], old_gather(active))
+        for pieces in (sk.pieces, None):
+            check_equal(new_gather(active, pieces), want,
+                        f"gather {name} pieces={pieces is not None}")
+        fns = {"old": lambda a=old_gather(active, sk.pieces):
+               run_c(old["gather"], a),
+               "new": lambda a=active: new_gather(a, sk.pieces),
+               "new_l2": lambda a=active: new_gather(a, None)}
+        if iface["gather"] == "this":   # the baseline's L2 regime too
+            fns["old_l2"] = lambda a=old_gather(active): run_c(
+                old["gather"], a)
+        emit({"row": "gather", "case": name,
+              "shape": {"slots": nm, "slot_tiles": nm // mt, "k": k, "q": q,
+                        "pieces": sk.pieces.numel() - 1},
+              "regimes": {"new": regime_of(fns["new"]),
+                          "new_l2": regime_of(fns["new_l2"])},
+              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "times": in_turns(fns, args.reps)})
 
     Path(args.report).parent.mkdir(parents=True, exist_ok=True)
