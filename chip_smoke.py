@@ -43,7 +43,14 @@ Phases, in order; each prints lines that start with its name:
            and ``torch.index_select`` of x over the slots' sources as a
            yardstick of a gather alone).  Then the composed DC step of
            PageRank timed whole and by part, its plain-torch slot gather
-           included.
+           included.  Then the lane forms of the batched engine (one launch
+           for B queries: ``fused_dc_lanes``, ``segment_combine_lanes``,
+           ``dc_gather_lanes``), each against its plain lane version at B =
+           4 (every monoid x dtype) and 16, on both of its paths (or
+           regimes), bit-exact, and timed at B = 16 at PageRank's shapes
+           (and SSSP's for ``fused_dc``) beside their bound (the lanes'
+           shared stream once, each lane's own bytes) and a yardstick: 16
+           single-lane launches on the same lanes.
   apps     BFS and SSSP from the highest-degree vertex, CC on the
            symmetrized graph and PageRank (10 iterations through
            ``run_fused``, and 10 through ``run`` for per-iteration times),
@@ -57,12 +64,23 @@ Phases, in order; each prints lines that start with its name:
            An engine's set-up on each DC lowering, whole and split into
            its host check, the fused kernel's check on the card, its
            host-to-card copies and the rest.
+  batched  ``bfs_multi`` and ``sssp_multi`` over 16 lanes (the highest-degree
+           vertex and 15 sources spread over the vertex ids) on each DC
+           lowering: every lane bit-exact with a sequential ``bfs`` /
+           ``sssp`` on the card, the first lane with the host oracles, and
+           each batched step exactly one launch of each lane kernel of its
+           lowering (``dc_gather_lanes`` staged); wall, steps, lanes per
+           step, compactions and peak device memory.
+  local    Nibble, heat-kernel PageRank and PageRank-Nibble from the same
+           vertex, in hybrid and in dc mode on each DC lowering, against the
+           same app through the plain versions on the card within L1 1e-5,
+           with both runs' iteration counts.
   tuning   ``autotune`` over the card's four tile geometries on the same
            graph, the sweep's times and winner, and ``build_layout`` with
            unset tiles reading the winner back from the cache.
 
 Launch counts are set to 0 before each path (fused apps, composed apps,
-tuning) and read after it.  Then one JSON line with the kernels' numbers,
+each batched and local run, tuning) and read after it.  Then one JSON line with the kernels' numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device.  The full
@@ -71,6 +89,7 @@ also written to ``--report`` (default ``results/chip_smoke.json``).
 """
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -464,14 +483,15 @@ def main() -> int:
     check(sk.pieces is not None, "the layout's slot tiles gave no pieces")
     scat = (sk.png_src_local, sk.png_valid, sk.png_tile_part)
     geo = dict(k=k, q=q, msg_tile=L.msg_tile)
-    regimes = _build.DC_GATHER.regimes
 
-    def regime_of(fn):
-        """The regime of dc_gather that one call of ``fn`` launched."""
+    def regime_of(fn, kernel=_build.DC_GATHER):
+        """The regime of ``kernel`` (dc_gather or its lane form) that one
+        call of ``fn`` launched."""
+        regimes = kernel.regimes
         before = dict(regimes)
         fn()
         moved = [r for r in regimes if regimes[r] != before[r]]
-        check(len(moved) == 1, f"dc_gather regimes moved: {moved}")
+        check(len(moved) == 1, f"{kernel.name} regimes moved: {moved}")
         return moved[0]
 
     gather_err = 0.0
@@ -659,8 +679,212 @@ def main() -> int:
     report["composed_dc_step"]["slot_gather_bound_ms"] = bound_ms(
         report["composed_dc_step"]["slot_gather_bytes"])
     say("kernels", name="composed_dc_step", **report["composed_dc_step"])
-    del pr_eng, bins, bins_p, valid_p, vk, gk, sk, kern, tiles, edge_valid, \
-        edge_dst, edge_dst64
+    del pr_eng, bins, bins_p, valid_p, vk
+
+    # ---------------- lanes ----------------
+    # The lane forms of the batched engine's DC kernels (one launch for B
+    # queries, lane b on blockIdx.y): each against its plain lane version,
+    # bit-exact, at B = 4 (every monoid x dtype) and B = 16 (a few), on both
+    # of its paths; then timed at B = 16 at PageRank's and SSSP's shapes,
+    # beside its bound (the lanes' shared stream once, their own bytes B
+    # times) and a yardstick: B single-lane launches on the same lanes.
+    lanes = 16
+    idx, _ = global_edges(
+        kern.tile_src_part, kern.tile_dst_part, kern.edge_src_local,
+        kern.edge_dst_local, edge_valid, q=L.q, edge_tile=L.edge_tile,
+        n_pad=n_pad)
+    all_cases = [(m, d) for m in MONOIDS for d in dtypes]
+    few_cases = [("add", "float32"), ("max", "int32")]
+
+    def lane_payload(b, n, dtype):
+        return payload(b * n, dtype).view(b, n)
+
+    def lane_unaligned(t):
+        return unaligned(t.reshape(-1)).view(t.shape)
+
+    fused_lane_paths = {
+        "ring": (tiles, edge_valid, kern.edge_w),
+        "plain_loads": (
+            EdgeTiles(unaligned(tiles.edge_src_local),
+                      unaligned(tiles.edge_dst_local), *tiles[2:]),
+            unaligned(edge_valid), unaligned(kern.edge_w))}
+    lane_err = dict.fromkeys(("fused_dc", "segment_combine", "dc_gather"),
+                             0.0)
+    for b, cases in ((4, all_cases), (lanes, few_cases)):
+        for path, (tl, ev, w) in fused_lane_paths.items():
+            for monoid, dname, fn in ([(m, d, None) for m, d in cases]
+                                      + [("min", "float32", add_weight)]):
+                dtype = dtypes[dname]
+                table = lane_payload(b, ns, dtype)
+                tvalid = torch.rand((b, ns), generator=gen, device=dev) < 0.5
+                tvalid[0] = False
+                got = fused_scatter_fold(
+                    table, tvalid, None, ev, None, ns, monoid=monoid,
+                    tiles=tl, apply_weight=fn, w=w if fn else None)
+                want = ref_fused_scatter_fold(
+                    M.REGISTRY[monoid](dtype), table, tvalid, idx, edge_valid,
+                    edge_dst, ns, apply_weight=fn,
+                    w=kern.edge_w if fn else None)
+                lane_err["fused_dc"] = max(lane_err["fused_dc"], max_abs_err(
+                    got, want, f"fused_dc[lanes={b}] {path} {monoid} {dname}"
+                    + (" add_weight" if fn else "")))
+                del got, want
+    combine_lane_paths = {"ring": lambda a: a, "plain_loads": lane_unaligned}
+    geo = dict(k=k, q=q, edge_tile=L.edge_tile)
+    for b, cases in ((4, all_cases), (lanes, few_cases)):
+        for path, view in combine_lane_paths.items():
+            for monoid, dname in cases:
+                vals = lane_payload(b, ne, dtypes[dname])
+                valid = edge_valid & (torch.rand((b, ne), generator=gen,
+                                                 device=dev) < 0.7)
+                part_active = torch.rand((b, k), generator=gen,
+                                         device=dev) < 0.5
+                part_active[0] = False
+                cargs = (view(vals), view(valid), gk.edge_dst_local,
+                         gk.tile_dst_part, gk.tile_src_part, gk.tile_first,
+                         part_active)
+                lane_err["segment_combine"] = max(
+                    lane_err["segment_combine"], max_abs_err(
+                        segment_combine(*cargs, monoid=monoid,
+                                        part_tile_off=gk.part_tile_off, **geo),
+                        ref_segment_combine(*cargs, monoid=monoid, **geo),
+                        f"segment_combine[lanes={b}] {path} {monoid} "
+                        f"{dname}"))
+                del vals, valid, cargs
+    geo_g = dict(k=k, q=q, msg_tile=L.msg_tile)
+    for b, cases in ((4, all_cases), (lanes, few_cases)):
+        for pieces, regime in ((sk.pieces, "staged"), (None, "l2")):
+            for monoid, dname in cases:
+                x = lane_payload(b, n_pad, dtypes[dname]).view(b, k, q)
+                act = (torch.rand((b, n_pad), generator=gen, device=dev)
+                       < 0.5).view(b, k, q)
+                act[0] = False
+                got = []
+                check(regime_of(lambda: got.append(dc_gather(
+                    x, act, *scat, monoid=monoid, pieces=pieces, **geo_g)),
+                    _build.DC_GATHER_LANES) == regime,
+                    f"dc_gather[lanes={b}] did not take its {regime} regime")
+                lane_err["dc_gather"] = max(lane_err["dc_gather"], max_abs_err(
+                    (got[0],),
+                    (ref_dc_gather(x, act, *scat, monoid=monoid, **geo_g),),
+                    f"dc_gather[lanes={b}] {regime} {monoid} {dname}"))
+                del got, x, act
+
+    def singles(call, *batched):
+        """The yardstick: ``call`` once per lane, on each lane's rows."""
+        rows = [[t[i] for t in batched] for i in range(lanes)]
+        return lambda: [call(*r) for r in rows]
+
+    # fused_dc: PageRank's step (f32 add, every source live) and SSSP's
+    # (f32 min, add_weight); the edges are every lane's
+    ltab = lane_payload(lanes, ns, torch.float32)
+    lvalid = torch.ones((lanes, ns), dtype=torch.bool, device=dev)
+
+    def fused_one(monoid="add", fn=None):
+        w = kern.edge_w if fn else None
+        return lambda t, v: fused_scatter_fold(
+            t, v, None, edge_valid, None, ns, monoid=monoid, tiles=tiles,
+            apply_weight=fn, w=w)
+
+    def fused_lane_bytes(weighted):
+        return (ne * (4 + 4 + 1 + (4 if weighted else 0)) + nt * 4
+                + (k + 1) * 8 + lanes * ns * (4 + 1 + 4 + 1))
+
+    report["fused_dc_lanes"] = {
+        "lanes": lanes, "shape": {"table": [lanes, ns], "edges": ne},
+        "case": "add float32, all sources live (PageRank's step)",
+        **kernel_times(lambda: fused_one()(ltab, lvalid), 10),
+        "plain_ms": median_ms(lambda: ref_fused_scatter_fold(
+            M.add(torch.float32), ltab, lvalid, idx, edge_valid, edge_dst,
+            ns), 2),
+        "bytes": fused_lane_bytes(False),
+        "bound_ms": bound_ms(fused_lane_bytes(False)),
+        "max_abs_err": lane_err["fused_dc"], "library_ms": None,
+        "controls": {
+            "single_lane_x16": kernel_times(
+                singles(fused_one(), ltab, lvalid), 10),
+            "sssp_f32_min_add_weight": dict(
+                kernel_times(lambda: fused_one("min", add_weight)(
+                    ltab, lvalid), 10),
+                bound_ms=bound_ms(fused_lane_bytes(True))),
+            "sssp_single_lane_x16": kernel_times(
+                singles(fused_one("min", add_weight), ltab, lvalid), 10)}}
+    say("kernels", name="fused_dc[lanes=16]", **report["fused_dc_lanes"])
+    del ltab, lvalid, idx
+
+    # segment_combine: the composed PageRank step's stream in every lane
+    # (f32 add, every source partition active), and f32 min
+    lvals = lane_payload(lanes, ne, torch.float32)
+    lvalid = edge_valid.expand(lanes, ne).contiguous()
+    lparts = torch.ones((lanes, k), dtype=torch.bool, device=dev)
+
+    def combine_one(monoid="add"):
+        return lambda v, e, pa: segment_combine(
+            v, e, gk.edge_dst_local, gk.tile_dst_part, gk.tile_src_part,
+            gk.tile_first, pa, monoid=monoid,
+            part_tile_off=gk.part_tile_off, **geo)
+
+    combine_lane_bytes = (ne * 4 + nt * 4 + (k + 1) * 8
+                          + lanes * (ne * (4 + 1) + k + n_pad * (4 + 1)))
+    # the library call: one scatter_reduce_ over the lanes' flattened
+    # lane * ns + dst segment space
+    lib_ids = (torch.arange(lanes, device=dev)[:, None] * ns
+               + edge_dst64).reshape(-1)
+    lib_vals = torch.where(lvalid, lvals, 0.0).reshape(-1)
+    lib_acc = torch.zeros(lanes * ns, device=dev)
+    report["segment_combine_lanes"] = {
+        "lanes": lanes, "shape": {"vals": [lanes, ne], "k": k, "q": q},
+        "case": "add float32, every source partition active",
+        **kernel_times(lambda: combine_one()(lvals, lvalid, lparts), 10),
+        "plain_ms": median_ms(lambda: ref_segment_combine(
+            lvals, lvalid, gk.edge_dst_local, gk.tile_dst_part,
+            gk.tile_src_part, gk.tile_first, lparts, **geo), 2),
+        "library_ms": median_ms(lambda: lib_acc.scatter_reduce_(
+            0, lib_ids, lib_vals, "sum", include_self=True), 10),
+        "bytes": combine_lane_bytes,
+        "bound_ms": bound_ms(combine_lane_bytes),
+        "max_abs_err": lane_err["segment_combine"],
+        "controls": {
+            "single_lane_x16": kernel_times(
+                singles(combine_one(), lvals, lvalid, lparts), 10),
+            "f32_min": kernel_times(
+                lambda: combine_one("min")(lvals, lvalid, lparts), 10)}}
+    say("kernels", name="segment_combine[lanes=16]",
+        **report["segment_combine_lanes"])
+    del lvals, lvalid, lparts, lib_ids, lib_vals, lib_acc
+
+    # dc_gather: the composed PageRank step's scatter in every lane, through
+    # ScatterKernel (staged), beside the L2 regime and half the sources
+    lx = lane_payload(lanes, n_pad, torch.float32)
+    llive = torch.ones((lanes, n_pad), dtype=torch.bool, device=dev)
+    lhalf = torch.rand((lanes, n_pad), generator=gen, device=dev) < 0.5
+
+    def lane_gather_times(fn):
+        return {"regime": regime_of(fn, _build.DC_GATHER_LANES),
+                **kernel_times(fn, 10)}
+
+    gather_lane_bytes = (nm * (4 + 1) + (nm // L.msg_tile) * 4
+                         + lanes * (n_pad * (4 + 1) + nm * 4))
+    report["dc_gather_lanes"] = {
+        "lanes": lanes, "shape": {"x": [lanes, n_pad], "slots": nm},
+        "case": "add float32, all sources live, through ScatterKernel",
+        **lane_gather_times(lambda: sk(lx, llive)),
+        "plain_ms": median_ms(lambda: ref_dc_gather(
+            lx.view(lanes, k, q), llive.view(lanes, k, q), *scat, **geo_g),
+            2),
+        "library_ms": None, "bytes": gather_lane_bytes,
+        "bound_ms": bound_ms(gather_lane_bytes),
+        "max_abs_err": lane_err["dc_gather"],
+        "controls": {
+            "single_lane_x16": {"regime": "staged", **kernel_times(
+                singles(sk, lx, llive), 10)},
+            "staged_half_active": lane_gather_times(lambda: sk(lx, lhalf)),
+            "l2": lane_gather_times(lambda: dc_gather(
+                lx.view(lanes, k, q), llive.view(lanes, k, q), *scat,
+                **geo_g))}}
+    say("kernels", name="dc_gather[lanes=16]", **report["dc_gather_lanes"])
+    del lx, llive, lhalf, gk, sk, kern, tiles, edge_valid, edge_dst, \
+        edge_dst64, fused_lane_paths
 
     # ---------------- apps ----------------
     P = to_scipy(g)                                      # weighted
@@ -871,6 +1095,165 @@ def main() -> int:
     report["engine_setup_s"] = setup_s
     del fused_res, composed_res
 
+    # ---------------- batched ----------------
+    # bfs_multi and sssp_multi over 16 lanes (src, then 15 sources spread
+    # over the vertex ids) on each DC lowering: every lane bit-exact with a
+    # sequential run on the card, the src lane with the scipy oracles, and
+    # each batched step one launch of each lane kernel of its lowering and
+    # of no other kernel (counts set to 0 before each run, read after it).
+    sources = np.concatenate(
+        [[src], np.linspace(0, g.n - 1, lanes - 1).astype(np.int64)])
+    t = time.perf_counter()
+    seq_engines = {"bfs": rt.Engine(L, rt.apps.bfs_program()),
+                   "sssp": rt.Engine(L, rt.apps.sssp_program())}
+    seq = {"bfs": [rt.bfs(L, int(v), engine=seq_engines["bfs"])
+                   for v in sources],
+           "sssp": [rt.sssp(L, int(v), engine=seq_engines["sssp"])
+                    for v in sources]}
+    report["batched_sequential_s"] = time.perf_counter() - t
+    del seq_engines
+    say("batched", sources=sources.tolist(),
+        sequential_s=report["batched_sequential_s"])
+    batched_kernels = {
+        "fused": (_build.FUSED_DC_LANES,),
+        "composed": (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES)}
+    batched, batched_launches = {}, {}
+    for path, kerns in batched_kernels.items():
+        if path == "composed":
+            os.environ[ENV_FUSED] = "0"
+        t = time.perf_counter()
+        engines = {"bfs": rt.Engine(L, rt.apps.bfs_program(), mode="dc"),
+                   "sssp": rt.Engine(L, rt.apps.sssp_program(), mode="dc")}
+        batch_setup_s = time.perf_counter() - t
+        os.environ.pop(ENV_FUSED, None)
+        check(all(e.fused == (path == "fused") for e in engines.values()),
+              f"batched engines took the wrong DC path for {path}")
+        batched_launches[path] = dict.fromkeys((kk.name for kk in kerns), 0)
+        out = {}
+        for name, app, keys in (("bfs", rt.bfs_multi, ("level", "parent")),
+                                ("sssp", rt.sssp_multi, ("dist",))):
+            _build.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out[name], wall = timed(
+                lambda: app(L, sources, engine=engines[name]))
+            launched = counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            stats = out[name]["stats"]
+            steps = len(stats)
+            for kk in _build.KERNELS:
+                want = steps if kk in kerns else 0
+                check(launched[kk.name] == want,
+                      f"batched {name} ({path}): {kk.name} launched "
+                      f"{launched[kk.name]} times in {steps} steps, not "
+                      f"{want}")
+            for kk in kerns:
+                batched_launches[path][kk.name] += launched[kk.name]
+            regimes = dict(_build.DC_GATHER_LANES.regimes)
+            check(path == "fused" or regimes["staged"] == steps,
+                  f"batched {name}: dc_gather_lanes regimes {regimes}")
+            for i, v in enumerate(sources):
+                for key in keys:
+                    check(np.array_equal(out[name][key][i],
+                                         seq[name][i][key]),
+                          f"batched {name} ({path}) lane {i} (source {v}): "
+                          f"{key} differs from the sequential run")
+            per_step = [st.lanes_active for st in stats]
+            batched[f"{name}_{path}"] = {
+                "lanes": lanes, "wall_s": wall,
+                "engine_setup_s": batch_setup_s,
+                "peak_bytes_above_engine": peak,
+                "steps": steps, "lanes_active": per_step,
+                "compactions": sum(n < lanes for n in per_step),
+                "n_active": [st.n_active for st in stats],
+                "step_wall_s": [st.wall_s for st in stats],
+                "launches": {kk: v for kk, v in launched.items() if v},
+                **({"dc_gather_lanes_regimes": regimes}
+                   if path == "composed" else {})}
+            say("batched", app=name, path=path, **batched[f"{name}_{path}"])
+        # the src lane against the host oracles
+        lv, par = out["bfs"]["level"][0], out["bfs"]["parent"][0]
+        check(np.array_equal(lv, want_level),
+              f"batched bfs ({path}): the src lane's levels differ from scipy")
+        reached = lv > 0
+        check(bool(np.all(lv[par[reached]] == lv[reached] - 1)),
+              f"batched bfs ({path}): parents are not one level up")
+        dist = out["sssp"]["dist"][0]
+        check(np.array_equal(np.isinf(dist), ~fin) and np.allclose(
+            dist[fin], want_dist[fin], rtol=1e-5, atol=0),
+              f"batched sssp ({path}): the src lane differs from Dijkstra")
+        del engines, out
+    report["batched"] = batched
+    del seq
+
+    # ---------------- local ----------------
+    # Nibble, heat-kernel PageRank and PageRank-Nibble from src, on each DC
+    # lowering, against the same app through the plain versions on the card
+    # (Engine(plain=True)): f32 adds run in another order, so within L1
+    # LOCAL_L1 over the vertices (mass 1 in all).  In hybrid mode, the apps'
+    # own; and in dc mode, where every iteration runs the DC stream, which
+    # Eq. 1 does not choose for these frontiers at this scale.
+    LOCAL_L1 = 1e-5
+    local_apps = {
+        "nibble": (rt.nibble, lambda: rt.apps.nibble_program(1e-4),
+                   ("pr",)),
+        "heat_kernel_pr": (rt.heat_kernel_pr,
+                           lambda: rt.apps.heat_kernel_program(5.0, 1e-5),
+                           ("hkpr",)),
+        "pagerank_nibble": (rt.pagerank_nibble,
+                            lambda: rt.apps.pagerank_nibble_program(0.15,
+                                                                    1e-5),
+                            ("ppr", "residual"))}
+    dc_kernels = {"fused": ("fused_dc",),
+                  "composed": ("dc_gather", "segment_combine")}
+    local = {}
+    for path, mode in itertools.product(("fused", "composed"),
+                                        ("hybrid", "dc")):
+        if path == "composed":
+            os.environ[ENV_FUSED] = "0"
+        try:
+            for name, (app, program, keys) in local_apps.items():
+                _build.reset_launch_counts()
+                res, wall = timed(lambda: app(L, src, mode=mode))
+                launched = counts()
+                plain_eng = rt.Engine(L, program(), mode=mode, plain=True)
+                plain_res, plain_wall = timed(
+                    lambda: app(L, src, engine=plain_eng))
+                del plain_eng
+                stats = res["stats"]
+                dc_iters = sum(st.dc_parts > 0 for st in stats)
+                for kname in ("fused_dc", "dc_gather", "segment_combine"):
+                    want = dc_iters if kname in dc_kernels[path] else 0
+                    check(launched[kname] == want,
+                          f"local {name} ({path}, {mode}): {kname} launched "
+                          f"{launched[kname]} times, {dc_iters} DC "
+                          "iterations")
+                check(sum(launched.values()) > 0,
+                      f"local {name} ({path}, {mode}) launched no kernel")
+                check(mode == "hybrid" or dc_iters == len(stats),
+                      f"local {name} ({path}, dc): an iteration ran no DC")
+                l1 = {key: float(np.abs(res[key].astype(np.float64)
+                                        - plain_res[key]).sum())
+                      for key in keys}
+                check(all(v <= LOCAL_L1 for v in l1.values()),
+                      f"local {name} ({path}, {mode}): L1 {l1} from the "
+                      f"plain run > {LOCAL_L1}")
+                local[f"{name}_{path}_{mode}"] = {
+                    "wall_s": wall, "iterations": len(stats),
+                    "plain_iterations": len(plain_res["stats"]),
+                    "plain_wall_s": plain_wall,
+                    "modes": [st.mode for st in stats],
+                    "n_active": [st.n_active for st in stats],
+                    "iter_wall_s": [st.wall_s for st in stats],
+                    "l1_vs_plain": l1, "l1_limit": LOCAL_L1,
+                    "mass": float(res[keys[0]].astype(np.float64).sum()),
+                    "launches": {kk: v for kk, v in launched.items() if v}}
+                say("local", app=name, path=path, mode=mode,
+                    **local[f"{name}_{path}_{mode}"])
+        finally:
+            os.environ.pop(ENV_FUSED, None)
+    report["local"] = local
+
     # ---------------- tuning ----------------
     tdir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
     t = time.perf_counter()
@@ -915,7 +1298,8 @@ def main() -> int:
 
     def controls(rec):
         """The same inputs' control rows, by their times (and regimes)."""
-        return {name: {key: c[key] for key in ("regime", "ms", "device_ms")
+        return {name: {key: c[key]
+                       for key in ("regime", "ms", "device_ms", "bound_ms")
                        if key in c}
                 for name, c in rec["controls"].items()}
 
@@ -941,6 +1325,24 @@ def main() -> int:
         row("spmv_block", "spmv_block.cu", "spmv_block.py:69",
             tuning_launches["spmv_block"], spmv_err, rows[True],
             rows[True]["bound_ms"]),
+        # the lane forms, launched by the batched phase
+        dict(row("fused_dc[lanes=16]", "fused_dc.cu", "fused_step.py:192",
+                 batched_launches["fused"]["fused_dc_lanes"],
+                 lane_err["fused_dc"], report["fused_dc_lanes"],
+                 report["fused_dc_lanes"]["bound_ms"]),
+             controls=controls(report["fused_dc_lanes"])),
+        dict(row("dc_gather[lanes=16]", "dc_gather.cu", "dc_gather.py:62",
+                 batched_launches["composed"]["dc_gather_lanes"],
+                 lane_err["dc_gather"], report["dc_gather_lanes"],
+                 report["dc_gather_lanes"]["bound_ms"]),
+             regime=report["dc_gather_lanes"]["regime"],
+             controls=controls(report["dc_gather_lanes"])),
+        dict(row("segment_combine[lanes=16]", "segment_combine.cu",
+                 "segment_combine.py:122",
+                 batched_launches["composed"]["segment_combine_lanes"],
+                 lane_err["segment_combine"], report["segment_combine_lanes"],
+                 report["segment_combine_lanes"]["bound_ms"]),
+             controls=controls(report["segment_combine_lanes"])),
     ]
     report["kernels"] = kernels
     Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -5,9 +5,11 @@ it and nothing of JAX.  The entry points run on a CUDA device unless the
 caller passes ``device="cpu"``, which runs the plain PyTorch versions of the
 kernels.
 """
-from .apps import bfs, connected_components, pagerank, sssp
+from .apps import (bfs, bfs_multi, connected_components, heat_kernel_pr,
+                   nibble, pagerank, pagerank_nibble, sssp, sssp_multi)
 from .core.engine import Engine
 from .graph import build_layout
 
-__all__ = ["Engine", "bfs", "build_layout", "connected_components",
-           "pagerank", "sssp"]
+__all__ = ["Engine", "bfs", "bfs_multi", "build_layout",
+           "connected_components", "heat_kernel_pr", "nibble", "pagerank",
+           "pagerank_nibble", "sssp", "sssp_multi"]

@@ -1,7 +1,13 @@
-from .bfs import bfs, bfs_program
+from .bfs import bfs, bfs_multi, bfs_program
 from .cc import cc_program, connected_components
+from .heat_kernel import heat_kernel_pr, heat_kernel_program
+from .nibble import nibble, nibble_program
 from .pagerank import pagerank, pagerank_program
-from .sssp import sssp, sssp_program
+from .pagerank_nibble import pagerank_nibble, pagerank_nibble_program
+from .sssp import sssp, sssp_multi, sssp_program
 
-__all__ = ["bfs", "bfs_program", "connected_components", "cc_program",
-           "pagerank", "pagerank_program", "sssp", "sssp_program"]
+__all__ = ["bfs", "bfs_multi", "bfs_program", "connected_components",
+           "cc_program", "heat_kernel_pr", "heat_kernel_program", "nibble",
+           "nibble_program", "pagerank", "pagerank_program",
+           "pagerank_nibble", "pagerank_nibble_program", "sssp",
+           "sssp_multi", "sssp_program"]

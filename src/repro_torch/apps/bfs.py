@@ -49,3 +49,32 @@ def bfs(layout, source: int, mode: str = "hybrid", bw_ratio: float = 2.0,
     return {"parent": state["parent"][:layout.n].cpu().numpy(),
             "level": state["level"][:layout.n].cpu().numpy(),
             "stats": stats}
+
+
+def bfs_multi(layout, sources, engine: Engine = None, max_iters: int = None,
+              device="cuda"):
+    """Batched multi-source BFS: one :meth:`Engine.run_batched` call answers
+    ``len(sources)`` queries, bit-exact with per-source :func:`bfs` calls.
+    Row ``i`` of every ``[B, n]`` result array belongs to ``sources[i]``."""
+    dev = engine.device if engine is not None else resolve_device(device)
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    B, n_pad = len(sources), layout.n_pad
+    lanes = torch.arange(B, device=dev)
+    src = torch.from_numpy(sources).to(dev)
+    parent = torch.full((B, n_pad), -1, dtype=torch.int32, device=dev)
+    parent[lanes, src] = src.to(torch.int32)
+    level = torch.full((B, n_pad), -1, dtype=torch.int32, device=dev)
+    level[lanes, src] = 0
+    # one row of ids for every lane; the step's message table is a copy
+    vid = torch.arange(n_pad, dtype=torch.int32, device=dev).view(
+        torch.uint32).expand(B, n_pad)
+    frontier = np.zeros((B, n_pad), bool)
+    frontier[np.arange(B), sources] = True
+    eng = engine if engine is not None else Engine(
+        layout, bfs_program(), mode="dc", device=dev)
+    states, _, stats = eng.run_batched(
+        {"parent": parent, "level": level, "vid": vid}, frontier,
+        max_iters=max_iters or n_pad)
+    return {"parent": states["parent"][:, :layout.n].cpu().numpy(),
+            "level": states["level"][:, :layout.n].cpu().numpy(),
+            "stats": stats}

@@ -36,8 +36,15 @@ active counts back for the Eq. 1 choice, as the reference's loop does, and
 the SC compaction's ``nonzero`` syncs once more.  The reference pads the SC
 stream to power-of-two budgets because XLA needs static shapes; here the
 stream has exactly the active edge count, and an active SC vertex set with
-no out-edges (the reference's degree-0 budget case) gives no stream.  The
-reference's batched engine is not ported yet.
+no out-edges (the reference's degree-0 budget case) gives no stream.
+
+:meth:`Engine.run_batched` advances ``B`` independent queries of one program
+together, as the reference's vmapped step does: every state leaf and the
+frontier carry a leading lane axis ``[B, n_pad]``, each superstep is DC-only
+with the per-lane partition mask computed on the device, and every DC kernel
+of the step runs once for all lanes in its lane form (one launch on a card).
+Converged lanes are frozen inside a step and compacted out between steps
+(:func:`_run_batched_loop`).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ import torch
 from ..kernels.fused_step import fused_enabled
 from ..kernels.ops import (FoldKernel, FusedDCKernel, GatherKernel,
                            ScatterKernel)
-from ..obs.schema import IterStats
+from ..obs.schema import BatchIterStats, IterStats
 from . import monoid as M
 from .cost import CostModel
 from .program import VertexProgram
@@ -71,6 +78,85 @@ def resolve_device(device) -> torch.device:
 
 def _tree_where(mask, new: dict, old: dict) -> dict:
     return {key: M.where(mask, new[key], old[key]) for key in old}
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x - 1).bit_length())
+
+
+def _compact_lane_index(lane_act: np.ndarray, device="cpu"):
+    """Surviving lane indices packed to the next power-of-two width, as an
+    int64 tensor on ``device``, and that width.
+
+    Padding repeats the first survivor, whose duplicate rows compute
+    identical values, so scattering the packed results back is
+    deterministic; the pow2 width keeps the set of step shapes at log2(B)
+    + 1, which bounds what a captured step would have to cover."""
+    idx_r = np.nonzero(lane_act)[0]
+    width = _next_pow2(len(idx_r))
+    idx = np.concatenate([idx_r, np.full(width - len(idx_r), idx_r[0])])
+    return torch.from_numpy(idx.astype(np.int64)).to(device), width
+
+
+def _take_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``x`` (any 4-byte dtype, ``uint32`` included)."""
+    return M.from_bits(M.as_bits(x).index_select(0, idx), x.dtype)
+
+
+def _put_lanes(x: torch.Tensor, idx: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """``x`` with rows ``idx`` replaced by ``rows``, through same-width
+    bits: ``index_put_`` raises for ``uint32`` on the CPU."""
+    return M.from_bits(M.as_bits(x).index_copy(0, idx, M.as_bits(rows)),
+                       x.dtype)
+
+
+def _run_batched_loop(step, states: dict, active, max_iters: int,
+                      until_empty: bool, collect_stats: bool):
+    """Host-driven batched convergence loop of :meth:`Engine.run_batched`
+    (kept a module function, as in the reference, for the multi-device
+    engine).
+
+    ``step(states, active, it) -> (states, active)`` is one batched
+    superstep over ``[W, ...]`` leaves, for any lane width ``W``.  The
+    *union* frontier drives convergence: each step reads back one ``[B]``
+    flag per lane (``active.any(1)``), and the active count only when
+    ``collect_stats``.  A step with every lane live runs on the whole batch;
+    otherwise the live lanes are packed to a power-of-two width
+    (:func:`_compact_lane_index`), stepped, and scattered back.  With
+    ``until_empty=False`` a step with no live lane is skipped.  Returns
+    ``(states, active, stats)``, ``stats`` a list of
+    :class:`BatchIterStats`."""
+    B = active.shape[0]
+    stats = []
+    for it in range(max_iters):
+        lane_act = active.any(1).cpu().numpy()
+        n_lanes = int(lane_act.sum())
+        if n_lanes == 0:
+            if until_empty:
+                break
+            continue    # every phase masks on active: a no-op step
+        t0 = time.perf_counter()
+        n_act = int(active.sum()) if collect_stats else 0
+        if n_lanes == B:
+            states, active = step(states, active, it)
+        else:
+            # lane compaction: converged lanes drop out of the batch
+            # instead of riding along as frozen work
+            idx, _ = _compact_lane_index(lane_act, active.device)
+            sub_states, sub_active = step(
+                {key: _take_lanes(v, idx) for key, v in states.items()},
+                active.index_select(0, idx), it)
+            states = {key: _put_lanes(v, idx, sub_states[key])
+                      for key, v in states.items()}
+            active = active.index_copy(0, idx, sub_active)
+        if active.is_cuda:
+            torch.cuda.synchronize(active.device)
+        if collect_stats:
+            stats.append(BatchIterStats(
+                it=it, lanes_active=n_lanes, n_active=n_act,
+                wall_s=time.perf_counter() - t0))
+    return states, active, stats
 
 
 class Engine:
@@ -157,18 +243,22 @@ class Engine:
         gather fold skips the tiles of source partitions not in DC mode.
         A slot is valid iff its source is in ``dc_active`` (the reference's
         ``active[png_src] & dc_mask[png_part]``); pad slots name the
-        sentinel vertex ``n_pad``, which never is."""
+        sentinel vertex ``n_pad``, which never is.  With a leading lane
+        axis (``[B, n_pad]`` messages and activity, ``[B, k]`` DC
+        partitions) every array carries it and the result is ``[B,
+        n_pad]``; the slot gathers run along the last axis."""
         prog, mono, dev = self.program, self.program.monoid, self.device
-        no = torch.zeros(1, dtype=torch.bool, device=dev)
-        ident = mono.identity_array((1,), dev)
+        lead = tuple(msgs.shape[:-1])
+        no = torch.zeros(lead + (1,), dtype=torch.bool, device=dev)
+        ident = mono.identity_array(lead + (1,), dev)
         msg_data = self._scatter(msgs, dc_active)                    # [NM]
-        dc_valid = torch.index_select(torch.cat([dc_active, no]), 0,
+        dc_valid = torch.index_select(torch.cat([dc_active, no], -1), -1,
                                       self.png_src)                  # [NM]
-        msg_data_p = torch.cat([M.as_bits(msg_data), M.as_bits(ident)])
-        dc_valid_p = torch.cat([dc_valid, no])
+        msg_data_p = torch.cat([M.as_bits(msg_data), M.as_bits(ident)], -1)
+        dc_valid_p = torch.cat([dc_valid, no], -1)
         edge_vals = M.from_bits(
-            torch.index_select(msg_data_p, 0, self.msg_slot), mono.dtype)
-        edge_valid = torch.index_select(dc_valid_p, 0, self.msg_slot)
+            torch.index_select(msg_data_p, -1, self.msg_slot), mono.dtype)
+        edge_valid = torch.index_select(dc_valid_p, -1, self.msg_slot)
         if prog.apply_weight is not None and self.edge_w is not None:
             edge_vals = prog.apply_weight(edge_vals, self.edge_w).to(
                 mono.dtype)
@@ -276,6 +366,92 @@ class Engine:
                           "sc" if dc_p == 0 else "hybrid"),
                     program=self.program.name))
         return state, active, stats
+
+    # ------------------------------------------------------------------
+    def batched_step(self, states: dict, active, it: int):
+        """One superstep of ``W`` lanes (``[W, n_pad]`` leaves and
+        frontier), the reference's vmapped DC-only step.
+
+        Each lane's DC partitions are those with an active vertex (the mask
+        ``run`` takes in mode 'dc'), computed on the device: no host read.
+        The DC stream is one call of the fused kernel, or of the composed
+        pair (``dc_gather`` and ``segment_combine``), for all lanes.  A lane
+        with an empty frontier is frozen: its state and frontier come back
+        unchanged."""
+        prog, mono, n_pad = self.program, self.program.monoid, self.n_pad
+        W, dev = active.shape[0], self.device
+        live = active.any(1)                                       # [W]
+        msgs = prog.scatter_fn(states)
+        if msgs.dtype != mono.dtype:
+            msgs = msgs.to(mono.dtype)
+
+        # ---- initFrontier (selective continuity) ----
+        new = states
+        if prog.init_fn is not None:
+            st2, keep = prog.init_fn(states, it)
+            new = _tree_where(active, st2, states)
+            keep = keep & active
+        else:
+            keep = torch.zeros_like(active)
+
+        # ---- DC stream, every lane in its own DC partitions ----
+        no = torch.zeros((W, 1), dtype=torch.bool, device=dev)
+        if self.fused:
+            # the table's validity is active & dc_mask[vert_part], which is
+            # active itself when the DC partitions are those with an active
+            # vertex
+            msgs_p = M.from_bits(torch.cat(
+                [M.as_bits(msgs),
+                 M.as_bits(mono.identity_array((W, 1), dev))], 1),
+                mono.dtype)
+            acc, touched = self._fused(msgs_p, torch.cat([active, no], 1))
+            acc, touched = acc[:, :n_pad], touched[:, :n_pad]
+        else:
+            # the scatter's [W, k, q] view needs whole rows (BFS's vid is
+            # one row expanded over the lanes)
+            dc_parts = active.view(W, self.k, self.q).any(2)        # [W, k]
+            acc, touched = self.composed_dc(msgs.contiguous(), active,
+                                            dc_parts)
+
+        # ---- Gather apply ----
+        st3, activated = prog.apply_fn(new, acc, touched, it)
+        new = _tree_where(touched, st3, new)
+        activated = activated & touched
+
+        # ---- filterFrontier on the union frontier ----
+        new_active = keep | activated
+        if prog.filter_fn is not None:
+            st4, fkeep = prog.filter_fn(new, it)
+            new = _tree_where(new_active, st4, new)
+            new_active = new_active & fkeep
+
+        # ---- freeze converged lanes ----
+        new = _tree_where(live[:, None], new, states)
+        return new, new_active & live[:, None]
+
+    def run_batched(self, states: dict, frontiers, max_iters: int = 10_000,
+                    until_empty: bool = True, collect_stats: bool = True):
+        """Batched multi-source execution: ``B`` independent queries of
+        this engine's program advance together, one DC-only
+        :meth:`batched_step` per superstep.
+
+        ``states`` maps names to ``[B, n_pad]`` tensors (moved to the
+        engine's device) and ``frontiers`` is ``[B, n_pad]`` bool.  The
+        layout is shared; only the per-query state is replicated.  The loop
+        (:func:`_run_batched_loop`) runs until every lane has drained,
+        compacting converged lanes out between steps.  Results are
+        bit-exact with ``B`` sequential :meth:`run` calls for min and max
+        programs.  Returns ``(states, active, stats)``, ``stats`` a list of
+        :class:`BatchIterStats`."""
+        active = torch.as_tensor(frontiers, dtype=torch.bool,
+                                 device=self.device)
+        if active.dim() != 2:
+            raise ValueError(f"frontiers must be [B, n_pad], got "
+                             f"{tuple(active.shape)}")
+        states = {key: torch.as_tensor(v, device=self.device)
+                  for key, v in states.items()}
+        return _run_batched_loop(self.batched_step, states, active,
+                                 max_iters, until_empty, collect_stats)
 
     # ------------------------------------------------------------------
     def run_fused(self, state: dict, frontier, iters: int):

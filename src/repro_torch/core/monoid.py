@@ -2,7 +2,9 @@
 
 The fold must be an associative and commutative monoid so that it can run as
 a data-parallel segmented reduction; the paper's apps use min and add.  The
-names, types and identities are those of :mod:`repro.core.monoid`.
+names, types and identities are those of :mod:`repro.core.monoid` (``or``
+with its quirk: see :func:`or_`); its 8-byte ``min_with_payload`` is not
+ported yet.
 
 ``uint32`` (the BFS and CC fold type) stays 4 bytes wide on every device,
 but torch implements few operations for it (on the CPU, torch 2.13 raises
@@ -72,6 +74,8 @@ def identity_value(name: str, dtype: torch.dtype):
         return float("inf") if floating else int(np.iinfo(npd).max)
     if name == "max":
         return float("-inf") if floating else int(np.iinfo(npd).min)
+    if name == "or":
+        return 0
     raise ValueError(f"unknown monoid {name!r}")
 
 
@@ -88,6 +92,8 @@ class Monoid:
             out = wa + wb
         elif self.name == "min":
             out = torch.minimum(wa, wb)
+        elif self.name == "or":
+            out = wa | wb
         else:
             out = torch.maximum(wa, wb)
         return narrow(out, self.dtype)
@@ -108,4 +114,14 @@ def max_(dtype=torch.uint32) -> Monoid:
     return Monoid("max", dtype, identity_value("max", dtype))
 
 
-REGISTRY = {"add": add, "min": min_, "max": max_}
+def or_() -> Monoid:
+    """``uint32`` or, identity 0, as the reference defines it: ``combine``
+    is ``a | b``, but the fold is a segmented **max** (the reference's
+    ``_seg(jax.ops.segment_max)``), so folding a segment whose values do
+    not nest bitwise gives their max, not their or.  Copied, not fixed, so
+    that the two registries agree; the kernels fold it through their max
+    code.  No app uses it."""
+    return Monoid("or", torch.uint32, identity_value("or", torch.uint32))
+
+
+REGISTRY = {"add": add, "min": min_, "max": max_, "or": or_}

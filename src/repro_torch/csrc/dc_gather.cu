@@ -45,6 +45,12 @@
 //     slot stream is read and written with evict-first hints, so that x and
 //     active stay in L2.
 //
+// The lane form (dc_gather_lanes, the batched engine's composed step): the
+// bins of `lanes` inputs [lanes, k*q] in one launch, lane b's blocks on
+// blockIdx.y == b, each as a single-lane launch's block on lane b's x,
+// active and out; in the staged regime each lane's blocks stage that lane's
+// rows.  Lanes share the slot stream, which each lane's blocks read again.
+//
 // How a thread takes its slots.  Staged: four consecutive slots at a time
 // (a 16-byte load of png_src_local, a 4-byte load of png_valid, a 16-byte
 // store) where msg_tile % 4 == 0 and those arrays are aligned, so four
@@ -59,6 +65,8 @@
 // regime divides (by msg_tile, for a slot's tile).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "edge_stream.cuh"
 
@@ -77,6 +85,7 @@ constexpr int kUnroll = 4;   // staged: slots (four-slot groups with VEC)
 constexpr int kMaxSmem = 232448;     // a block's dynamic shared memory
 constexpr int kMaxStagedQ = 46480;   // largest q % 16 == 0 with 5q + 8 <= it
 constexpr int kRegimeL2 = 0, kRegimeStaged = 1;
+constexpr int kMaxLanes = 65535;     // gridDim.y
 
 // Shared bytes of the staged regime: x's row, active's row, the mbarrier.
 __host__ __device__ constexpr long long staged_bytes(long long q) {
@@ -96,6 +105,15 @@ struct Args {
   uint32_t* out;
   int k, q, msg_tile;
   uint32_t ident;
+  long long x_stride, out_stride;   // entries between two lanes' x (and
+                                    // active), and their out
+
+  // Lane b's x, active and out.
+  __device__ void to_lane(long long b) {
+    x += b * x_stride;
+    active += b * x_stride;
+    out += b * out_stride;
+  }
 };
 
 // Read-only gathers that the compiler may neither drop nor predicate on each
@@ -148,18 +166,22 @@ __device__ void l2_range(const Args& a, Index s0, Index s1, Index tid,
   }
 }
 
-template <typename Index>
+// With LANES, a block first moves a to its lane (blockIdx.y); the
+// single-lane instantiations carry no lane offsets.
+template <typename Index, bool LANES>
 __global__ void __launch_bounds__(kL2Threads) l2_kernel(Args a, Index nm) {
+  if constexpr (LANES) a.to_lane(blockIdx.y);
   l2_range<Index>(a, 0, nm, (Index)blockIdx.x * kL2Threads + threadIdx.x,
                   (Index)gridDim.x * kL2Threads);
 }
 
 // One block per piece: tiles [piece_tiles[b], piece_tiles[b + 1]).  With
 // VEC, a thread takes four consecutive slots at a time.
-template <typename Index, bool VEC>
+template <typename Index, bool VEC, bool LANES>
 __global__ void __launch_bounds__(kStagedThreads, 1)
     staged_kernel(Args a, const long long* __restrict__ piece_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (LANES) a.to_lane(blockIdx.y);
   const long long t0 = piece_tiles[blockIdx.x];
   const long long t1 = piece_tiles[blockIdx.x + 1];
   if (t1 <= t0) return;
@@ -257,12 +279,12 @@ bool aligned(const void* p, uintptr_t to) {
   return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
 
-template <typename Index, bool VEC>
+template <typename Index, bool VEC, bool LANES>
 cudaError_t launch(const Args& a, const long long* piece_tiles,
-                   long long n_pieces, long long nm, int dev,
+                   long long n_pieces, long long nm, int lanes, int dev,
                    cudaStream_t stream) {
   if (piece_tiles != nullptr) {
-    auto kernel = staged_kernel<Index, VEC>;
+    auto kernel = staged_kernel<Index, VEC, LANES>;
     // per host thread and instantiation: the shared-memory limit is raised
     // once for each device it meets
     thread_local int raised_dev = -1;
@@ -272,8 +294,8 @@ cudaError_t launch(const Args& a, const long long* piece_tiles,
       if (err != cudaSuccess) return err;
       raised_dev = dev;
     }
-    kernel<<<(unsigned)n_pieces, kStagedThreads, staged_bytes(a.q), stream>>>(
-        a, piece_tiles);
+    kernel<<<dim3((unsigned)n_pieces, lanes), kStagedThreads,
+             staged_bytes(a.q), stream>>>(a, piece_tiles);
   } else {
     thread_local int sms_dev = -1, sms = 0;
     if (sms_dev != dev) {
@@ -284,10 +306,65 @@ cudaError_t launch(const Args& a, const long long* piece_tiles,
     }
     const long long want = (nm + kL2Threads - 1) / kL2Threads;
     const long long most = (long long)sms * kL2BlocksPerSM;
-    l2_kernel<Index><<<(unsigned)(want < most ? want : most), kL2Threads, 0,
-                       stream>>>(a, (Index)nm);
+    l2_kernel<Index, LANES>
+        <<<dim3((unsigned)(want < most ? want : most), lanes), kL2Threads, 0,
+           stream>>>(a, (Index)nm);
   }
   return cudaGetLastError();
+}
+
+// Both C entries: `lanes` inputs x and active, x_stride entries apart,
+// written to `lanes` bins out_stride apart.
+int run(const void* x, const void* active, const void* png_src_local,
+        const void* png_valid, const void* png_tile_part,
+        const void* piece_tiles, long long n_pieces, long long nm, int k,
+        int q, int msg_tile, int lanes, long long x_stride,
+        long long out_stride, unsigned ident_bits, void* out, int device,
+        int* regime, void* stream) {
+  if (nm < 0 || k <= 0 || q <= 0 || msg_tile <= 0 || nm % msg_tile != 0 ||
+      n_pieces < 0 || n_pieces > 0x7fffffffLL || device < 0 || lanes < 1 ||
+      lanes > kMaxLanes ||
+      (lanes > 1 && (x_stride < (long long)k * q || out_stride < nm)))
+    return (int)cudaErrorInvalidValue;
+  // every lane's rows 16-byte aligned: the bases, and the lane strides of x
+  // (4 B an entry) and active (1 B)
+  const bool rows_aligned = aligned(x, 16) && aligned(active, 16) &&
+                            (lanes == 1 || x_stride % 16 == 0);
+  const bool staged = piece_tiles != nullptr && n_pieces > 0 &&
+                      q % 16 == 0 && q <= kMaxStagedQ && rows_aligned;
+  *regime = staged ? kRegimeStaged : kRegimeL2;
+  if (nm == 0) return 0;
+  const Args a{static_cast<const uint32_t*>(x),
+               static_cast<const uint8_t*>(active),
+               static_cast<const int*>(png_src_local),
+               static_cast<const uint8_t*>(png_valid),
+               static_cast<const int*>(png_tile_part),
+               static_cast<uint32_t*>(out),
+               k, q, msg_tile, ident_bits, x_stride, out_stride};
+  const long long* pieces =
+      staged ? static_cast<const long long*>(piece_tiles) : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // four slots a thread where they never straddle a tile and the slot
+  // arrays allow 16-byte (png_src_local, every lane's out) and 4-byte
+  // (png_valid) access
+  const bool vec = msg_tile % 4 == 0 && aligned(png_src_local, 16) &&
+                   aligned(png_valid, 4) && aligned(out, 16) &&
+                   (lanes == 1 || out_stride % 4 == 0);
+  using I32 = uint32_t;
+  using I64 = unsigned long long;
+  auto go = [&](auto lane_form) {
+    constexpr bool L = decltype(lane_form)::value;
+    return nm <= 0x7fffffffLL
+               ? (vec ? launch<I32, true, L>(a, pieces, n_pieces, nm, lanes,
+                                             device, s)
+                      : launch<I32, false, L>(a, pieces, n_pieces, nm, lanes,
+                                              device, s))
+               : (vec ? launch<I64, true, L>(a, pieces, n_pieces, nm, lanes,
+                                             device, s)
+                      : launch<I64, false, L>(a, pieces, n_pieces, nm, lanes,
+                                              device, s));
+  };
+  return (int)(lanes > 1 ? go(std::true_type{}) : go(std::false_type{}));
 }
 
 }  // namespace
@@ -304,37 +381,29 @@ extern "C" int dc_gather(const void* x, const void* active,
                          long long n_pieces, long long nm, int k, int q,
                          int msg_tile, unsigned ident_bits, void* out,
                          int device, int* regime, void* stream) {
-  if (nm < 0 || k <= 0 || q <= 0 || msg_tile <= 0 || nm % msg_tile != 0 ||
-      n_pieces < 0 || n_pieces > 0x7fffffffLL || device < 0)
-    return (int)cudaErrorInvalidValue;
-  const bool staged = piece_tiles != nullptr && n_pieces > 0 &&
-                      q % 16 == 0 && q <= kMaxStagedQ && aligned(x, 16) &&
-                      aligned(active, 16);
-  *regime = staged ? kRegimeStaged : kRegimeL2;
-  if (nm == 0) return 0;
-  const Args a{static_cast<const uint32_t*>(x),
-               static_cast<const uint8_t*>(active),
-               static_cast<const int*>(png_src_local),
-               static_cast<const uint8_t*>(png_valid),
-               static_cast<const int*>(png_tile_part),
-               static_cast<uint32_t*>(out),
-               k, q, msg_tile, ident_bits};
-  const long long* pieces =
-      staged ? static_cast<const long long*>(piece_tiles) : nullptr;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // four slots a thread where they never straddle a tile and the slot
-  // arrays allow 16-byte (png_src_local, out) and 4-byte (png_valid) access
-  const bool vec = msg_tile % 4 == 0 && aligned(png_src_local, 16) &&
-                   aligned(png_valid, 4) && aligned(out, 16);
-  using I32 = uint32_t;
-  using I64 = unsigned long long;
-  const bool narrow = nm <= 0x7fffffffLL;
-  const cudaError_t err =
-      narrow ? (vec ? launch<I32, true>(a, pieces, n_pieces, nm, device, s)
-                    : launch<I32, false>(a, pieces, n_pieces, nm, device, s))
-             : (vec ? launch<I64, true>(a, pieces, n_pieces, nm, device, s)
-                    : launch<I64, false>(a, pieces, n_pieces, nm, device, s));
-  return (int)err;
+  return run(x, active, png_src_local, png_valid, png_tile_part, piece_tiles,
+             n_pieces, nm, k, q, msg_tile, 1, 0, 0, ident_bits, out, device,
+             regime, stream);
+}
+
+// The lane form: one launch writes the bins of `lanes` inputs, lane b on
+// blockIdx.y == b.  Lane b's x and active start x_stride * b entries in
+// (>= k*q), its out out_stride * b (>= nm); 1 <= lanes <= 65,535.  A lane
+// stages its own rows: the staged regime also needs x_stride % 16 == 0, so
+// that every lane's rows are 16-byte aligned.  The rest as dc_gather.
+extern "C" int dc_gather_lanes(const void* x, const void* active,
+                               const void* png_src_local,
+                               const void* png_valid,
+                               const void* png_tile_part,
+                               const void* piece_tiles, long long n_pieces,
+                               long long nm, int k, int q, int msg_tile,
+                               int lanes, long long x_stride,
+                               long long out_stride, unsigned ident_bits,
+                               void* out, int device, int* regime,
+                               void* stream) {
+  return run(x, active, png_src_local, png_valid, png_tile_part, piece_tiles,
+             n_pieces, nm, k, q, msg_tile, lanes, x_stride, out_stride,
+             ident_bits, out, device, regime, stream);
 }
 
 extern "C" const char* dc_gather_error_string(int code) {

@@ -52,6 +52,16 @@
 // kernel runs instead: each warp takes one tile, and each lane loads
 // partition_fold::kDirectEdges edges of it before gathering and folding them.
 //
+// The lane form (fused_dc_lanes, the batched engine's step): `lanes` tables
+// fold over the same edges in one launch, lane b's blocks on blockIdx.y == b,
+// each as a single-lane launch's block with lane b's table, validity and
+// outputs (partition_fold.cuh, "Lanes").  Each lane's blocks stream the edges
+// again, so B lanes move the edge stream B times, where the bound for B lanes
+// counts it once (9 B an edge, 13 B weighted) beside B times the per-vertex
+// bytes (table 4 + validity 1 + acc 4 + touched 1).  Reading the stream once
+// for all lanes needs edges ordered by destination slice or accumulators
+// outside shared memory; this form does neither.
+//
 // Precondition, checked once per layout (FusedDCKernel; the per-edge part on
 // the card): part_tile_off is the destination-partition structure of the
 // tiles, and every valid edge's global destination is p * q + dst_local with
@@ -98,6 +108,13 @@ struct FusedEdges {
   const uint8_t* table_valid;
   long long table_len;
   int q;
+  long long table_stride = 0;         // entries between two lanes' tables
+  long long lane_stride[4] = {};      // the edges are every lane's
+
+  __device__ void to_lane(long long b) {
+    table += b * table_stride;
+    table_valid += b * table_stride;
+  }
 
   struct Edge {
     long long si = 0;   // the source's table index
@@ -138,8 +155,9 @@ struct FusedEdges {
 
 template <int M, typename T, bool WEIGHT>
 cudaError_t launch(const void* table, const void* table_valid,
-                   long long table_len, const void* src_local,
-                   const void* dst_local, const void* valid, const void* w,
+                   long long table_len, long long table_stride,
+                   const void* src_local, const void* dst_local,
+                   const void* valid, const void* w,
                    const partition_fold::Parts& parts, void* acc,
                    void* touched, cudaStream_t stream) {
   FusedEdges<M, T, WEIGHT> e{{src_local, dst_local, valid, w},
@@ -147,8 +165,47 @@ cudaError_t launch(const void* table, const void* table_valid,
                              static_cast<const T*>(table),
                              static_cast<const uint8_t*>(table_valid),
                              table_len,
-                             parts.q};
+                             parts.q,
+                             table_stride};
   return partition_fold::launch_tiles(e, parts, acc, touched, stream);
+}
+
+// Both C entries: `lanes` tables of table_len entries, table_stride apart,
+// folded into `lanes` outputs of num_segments entries, out_stride apart.
+int run(const void* table, const void* table_valid, long long table_len,
+        long long table_stride, const void* src_local, const void* dst_local,
+        const void* valid, const void* w, const void* tile_src_part,
+        const void* part_tile_off, int k, int q, int edge_tile, int chunk,
+        long long num_segments, int lanes, long long out_stride, int monoid,
+        int dtype, int edge_fn, void* acc, void* touched, void* stream) {
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+      table_len <= 0 || num_segments < (long long)k * q || lanes < 1 ||
+      lanes > partition_fold::kMaxLanes ||
+      (lanes > 1 && (table_stride < table_len || out_stride < num_segments)))
+    return (int)cudaErrorInvalidValue;
+  partition_fold::Parts parts{
+      static_cast<const int*>(tile_src_part),
+      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
+      0, num_segments};
+  parts.lanes = lanes;
+  parts.lane_segments = out_stride;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
+    using C = decltype(combo);
+    using T = typename C::type;
+    if (edge_fn == EDGE_ADD_WEIGHT) {
+      if constexpr (std::is_same_v<T, float>)
+        return launch<C::monoid, T, true>(table, table_valid, table_len,
+                                          table_stride, src_local, dst_local,
+                                          valid, w, parts, acc, touched, s);
+      else
+        return cudaErrorInvalidValue;
+    }
+    if (edge_fn != EDGE_NONE) return cudaErrorInvalidValue;
+    return launch<C::monoid, T, false>(table, table_valid, table_len,
+                                       table_stride, src_local, dst_local,
+                                       valid, w, parts, acc, touched, s);
+  });
 }
 
 }  // namespace
@@ -169,30 +226,31 @@ extern "C" int fused_dc(const void* table, const void* table_valid,
                         int chunk, long long num_segments, int monoid,
                         int dtype, int edge_fn, void* acc, void* touched,
                         void* stream) {
-  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
-      table_len <= 0 || num_segments < (long long)k * q)
-    return (int)cudaErrorInvalidValue;
-  const partition_fold::Parts parts{
-      static_cast<const int*>(tile_src_part),
-      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
-      0, num_segments};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
-    using C = decltype(combo);
-    using T = typename C::type;
-    if (edge_fn == EDGE_ADD_WEIGHT) {
-      if constexpr (std::is_same_v<T, float>)
-        return launch<C::monoid, T, true>(table, table_valid, table_len,
-                                          src_local, dst_local, valid, w,
-                                          parts, acc, touched, s);
-      else
-        return cudaErrorInvalidValue;
-    }
-    if (edge_fn != EDGE_NONE) return cudaErrorInvalidValue;
-    return launch<C::monoid, T, false>(table, table_valid, table_len,
-                                       src_local, dst_local, valid, w, parts,
-                                       acc, touched, s);
-  });
+  return run(table, table_valid, table_len, 0, src_local, dst_local, valid, w,
+             tile_src_part, part_tile_off, k, q, edge_tile, chunk,
+             num_segments, 1, 0, monoid, dtype, edge_fn, acc, touched, stream);
+}
+
+// The lane form: one launch folds `lanes` tables (the batched engine's
+// queries) over the same edges, lane b on blockIdx.y == b.  Lane b's table
+// and table_valid start table_stride * b entries in (table_stride >=
+// table_len), its acc and touched out_stride * b (out_stride >=
+// num_segments); 1 <= lanes <= 65,535.  The rest as fused_dc.
+extern "C" int fused_dc_lanes(const void* table, const void* table_valid,
+                              long long table_len, long long table_stride,
+                              const void* src_local, const void* dst_local,
+                              const void* valid, const void* w,
+                              const void* tile_src_part,
+                              const void* part_tile_off, int k, int q,
+                              int edge_tile, int chunk,
+                              long long num_segments, int lanes,
+                              long long out_stride, int monoid, int dtype,
+                              int edge_fn, void* acc, void* touched,
+                              void* stream) {
+  return run(table, table_valid, table_len, table_stride, src_local,
+             dst_local, valid, w, tile_src_part, part_tile_off, k, q,
+             edge_tile, chunk, num_segments, lanes, out_stride, monoid, dtype,
+             edge_fn, acc, touched, stream);
 }
 
 extern "C" const char* fused_dc_error_string(int code) {

@@ -30,6 +30,14 @@
 // lane of the warp hit it: a sum equal to 0 (zero payloads) still marks.
 // Every call is made by the whole warp (the probe and the spill are warp
 // collectives), on keys that may differ from lane to lane.
+//
+// Lanes (the batched engine's queries): a launch may fold `lanes` independent
+// inputs over the same tiles, lane b on blockIdx.y == b.  A lane's blocks are
+// a single-lane launch's blocks with the lane's pointers: each per-edge array
+// advances by its policy's lane_stride (elements; 0 for the layout's arrays,
+// which every lane shares), the policy moves its own per-lane tables
+// (to_lane), and acc and touched advance by Parts::lane_segments.  Each lane's
+// blocks read the edge stream again.  The offsets are 64-bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -189,13 +197,18 @@ __device__ void write_back(const T* s_acc, const uint8_t* s_touched,
 // [part_tile_off[p], part_tile_off[p+1]), tile t's edges [t * edge_tile,
 // (t+1) * edge_tile), and its tag (the ring's tag) tile_src_part[t].  A
 // block holds chunk of a partition's q segments; segments [k*q,
-// num_segments) are written as the identity, untouched, by block 0.
+// num_segments) are written as the identity, untouched, by block 0 of each
+// lane.  Lane b's acc and touched start lane_segments * b entries in.
 struct Parts {
   const int* tile_src_part;
   const long long* part_tile_off;
   int k, q, edge_tile, chunk, n_chunks;
   long long num_segments;
+  int lanes = 1;
+  long long lane_segments = 0;
 };
+
+constexpr int kMaxLanes = 65535;   // gridDim.y
 
 // Edge policies.  A policy E is a small struct passed to the kernels by
 // value.  It has
@@ -214,10 +227,35 @@ struct Parts {
 //   gather(edge)               its reads of global tables, made after the
 //                              stage is released and for all of a lane's
 //                              edges before any fold, so that they overlap;
-//   key(edge), value(edge)     the slot it folds into (-1: none) and what.
+//   key(edge), value(edge)     the slot it folds into (-1: none) and what;
+//   lane_stride                elements between two lanes' copies of each
+//                              per-edge array (0: one array for all lanes);
+//   to_lane(b)                 moves its per-lane tables to lane b's.
 template <class E>
 __host__ __device__ constexpr int slice_bytes(int chunk) {
   return (int)(sizeof(typename E::Value) + (E::kTouched ? 1 : 0)) * chunk;
+}
+
+// The policy of lane b: its per-edge arrays and tables moved to lane b's.
+template <class E>
+__device__ E lane_policy(E e, long long b) {
+#pragma unroll
+  for (int a = 0; a < E::kArrays; ++a)
+    e.arrays[a] = static_cast<const unsigned char*>(e.arrays[a]) +
+                  b * e.lane_stride[a] * e.elems[a];
+  e.to_lane(b);
+  return e;
+}
+
+// The policy a block folds with: the kernel's own in a single-lane launch,
+// its lane's (blockIdx.y) in a lane launch.  Separate instantiations keep
+// the lanes' offsets out of the single-lane kernels: with them,
+// segment_combine's integer adds and min folds measured 3-4 % slower on an
+// H100 (PERF.md §6).
+template <bool LANES, class E>
+__device__ __forceinline__ E block_policy(const E& e) {
+  if constexpr (LANES) return lane_policy(e, blockIdx.y);
+  else return e;
 }
 
 template <class E>
@@ -234,12 +272,17 @@ __device__ void write_tail(const Parts& P, typename E::Value* acc,
 // One producer warp streams the partition's live tiles through the ring;
 // each consumer warp reads its edges of a stage, releases the stage, gathers
 // and folds them.
-template <class E>
+template <class E, bool LANES>
 __global__ void __launch_bounds__(kRingThreads) ring_kernel(
-    const E e, const Parts P, typename E::Value* __restrict__ acc,
+    const E e0, const Parts P, typename E::Value* __restrict__ acc,
     uint8_t* __restrict__ touched) {
   using T = typename E::Value;
   using Ring = typename E::Ring;
+  const E e = block_policy<LANES>(e0);
+  if constexpr (LANES) {
+    acc += blockIdx.y * P.lane_segments;
+    if constexpr (E::kTouched) touched += blockIdx.y * P.lane_segments;
+  }
   constexpr int kPerLane =    // edges a consumer lane takes from a stage
       (Ring::kStageEdges + 32 * kConsumerWarps - 1) / (32 * kConsumerWarps);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -293,11 +336,16 @@ __global__ void __launch_bounds__(kRingThreads) ring_kernel(
 }
 
 // Plain loads: each warp takes one live tile at a time.
-template <class E>
+template <class E, bool LANES>
 __global__ void __launch_bounds__(kDirectThreads) direct_kernel(
-    const E e, const Parts P, typename E::Value* __restrict__ acc,
+    const E e0, const Parts P, typename E::Value* __restrict__ acc,
     uint8_t* __restrict__ touched) {
   using T = typename E::Value;
+  const E e = block_policy<LANES>(e0);
+  if constexpr (LANES) {
+    acc += blockIdx.y * P.lane_segments;
+    if constexpr (E::kTouched) touched += blockIdx.y * P.lane_segments;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_acc = reinterpret_cast<T*>(smem);
   uint8_t* s_touched = smem + sizeof(T) * P.chunk;   // with kTouched only
@@ -335,17 +383,24 @@ __global__ void __launch_bounds__(kDirectThreads) direct_kernel(
 }
 
 // Launches ring_kernel where the edge arrays and edge_tile meet the ring's
-// copy rules (edge_stream_ok), else direct_kernel; one block per chunk of a
-// partition.  P.n_chunks is set here.
+// copy rules (edge_stream_ok) for every lane, else direct_kernel; one block
+// per chunk of a partition and lane.  P.n_chunks is set here.
 template <class E>
 cudaError_t launch_tiles(const E& e, Parts P, void* acc, void* touched,
                    cudaStream_t stream) {
+  if (P.lanes < 1 || P.lanes > kMaxLanes) return cudaErrorInvalidValue;
   P.n_chunks = (P.q + P.chunk - 1) / P.chunk;
-  const bool use_ring =
+  bool use_ring =
       edge_stream::edge_stream_ok(e.arrays, E::kArrays, P.edge_tile);
+  for (int a = 0; a < E::kArrays && P.lanes > 1; ++a)
+    use_ring = use_ring && e.lane_stride[a] * e.elems[a] % 16 == 0;
   int bytes_per_edge = 0;
   for (int a = 0; a < E::kArrays; ++a) bytes_per_edge += e.elems[a];
-  auto kernel = use_ring ? ring_kernel<E> : direct_kernel<E>;
+  const bool lanes = P.lanes > 1;
+  auto kernel = use_ring ? (lanes ? ring_kernel<E, true>
+                                  : ring_kernel<E, false>)
+                         : (lanes ? direct_kernel<E, true>
+                                  : direct_kernel<E, false>);
   const int slice = slice_bytes<E>(P.chunk);
   const size_t smem =
       use_ring ? edge_stream::align16(slice) + E::Ring::bytes(bytes_per_edge)
@@ -353,9 +408,10 @@ cudaError_t launch_tiles(const E& e, Parts P, void* acc, void* touched,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<P.k * P.n_chunks, use_ring ? kRingThreads : kDirectThreads, smem,
-           stream>>>(e, P, static_cast<typename E::Value*>(acc),
-                     static_cast<uint8_t*>(touched));
+  const dim3 grid(P.k * P.n_chunks, P.lanes);
+  kernel<<<grid, use_ring ? kRingThreads : kDirectThreads, smem, stream>>>(
+      e, P, static_cast<typename E::Value*>(acc),
+      static_cast<uint8_t*>(touched));
   return cudaGetLastError();
 }
 

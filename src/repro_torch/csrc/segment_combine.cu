@@ -49,6 +49,14 @@
 // edge into its own destination only.  The two agree on finite payloads,
 // which is what the parity tests use.
 //
+// The lane form (segment_combine_lanes, the batched engine's composed step):
+// `lanes` edge streams [lanes, NE] with their part_active rows [lanes, k]
+// fold over the same tiles in one launch, lane b's blocks on blockIdx.y == b
+// (partition_fold.cuh, "Lanes"); each lane skips the tiles of its own
+// inactive source partitions.  Every byte it reads is the lane's own but
+// dst_local, so B lanes move B times a lane's stream; its bound counts
+// dst_local once.
+//
 // Precondition, checked on the host once per layout (GatherKernel):
 // part_tile_off is the destination-partition structure of the tiles.  A tile
 // whose source partition lies outside [0, k), and an edge whose dst_local
@@ -81,6 +89,10 @@ struct CombineEdges {
   int elems[4];
   int k;
   const uint8_t* part_active;
+  long long part_stride = 0;   // entries between two lanes' part_active
+  long long lane_stride[4] = {};
+
+  __device__ void to_lane(long long b) { part_active += b * part_stride; }
 
   struct Edge {
     int key = -1;
@@ -106,6 +118,41 @@ struct CombineEdges {
   __device__ T value(const Edge& ed) const { return ed.v; }
 };
 
+// Both C entries: `lanes` edge streams (vals and valid), edge_stride apart,
+// with their part_active rows part_stride apart, folded into `lanes` outputs
+// of k*q entries, out_stride apart.
+int run(const void* vals, const void* valid, const void* dst_local,
+        const void* tile_src_part, const void* part_tile_off,
+        const void* part_active, int k, int q, int edge_tile, int chunk,
+        int lanes, long long edge_stride, long long part_stride,
+        long long out_stride, int monoid, int dtype, void* acc, void* touched,
+        void* stream) {
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+      lanes < 1 || lanes > partition_fold::kMaxLanes ||
+      (lanes > 1 && (edge_stride < 0 || part_stride < k ||
+                     out_stride < (long long)k * q)))
+    return (int)cudaErrorInvalidValue;
+  partition_fold::Parts parts{
+      static_cast<const int*>(tile_src_part),
+      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
+      0, (long long)k * q};
+  parts.lanes = lanes;
+  parts.lane_segments = out_stride;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
+    using C = decltype(combo);
+    using T = typename C::type;
+    const CombineEdges<C::monoid, T> e{
+        {vals, dst_local, valid, nullptr},
+        {(int)sizeof(T), 4, 1, 0},
+        k,
+        static_cast<const uint8_t*>(part_active),
+        part_stride,
+        {edge_stride, 0, edge_stride, 0}};
+    return partition_fold::launch_tiles(e, parts, acc, touched, s);
+  });
+}
+
 }  // namespace
 
 // Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
@@ -120,22 +167,28 @@ extern "C" int segment_combine(const void* vals, const void* valid,
                                const void* part_active, int k, int q,
                                int edge_tile, int chunk, int monoid, int dtype,
                                void* acc, void* touched, void* stream) {
-  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk)
-    return (int)cudaErrorInvalidValue;
-  const partition_fold::Parts parts{
-      static_cast<const int*>(tile_src_part),
-      static_cast<const long long*>(part_tile_off), k, q, edge_tile, chunk,
-      0, (long long)k * q};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
-    using C = decltype(combo);
-    using T = typename C::type;
-    const CombineEdges<C::monoid, T> e{{vals, dst_local, valid, nullptr},
-                                       {(int)sizeof(T), 4, 1, 0},
-                                       k,
-                                       static_cast<const uint8_t*>(part_active)};
-    return partition_fold::launch_tiles(e, parts, acc, touched, s);
-  });
+  return run(vals, valid, dst_local, tile_src_part, part_tile_off,
+             part_active, k, q, edge_tile, chunk, 1, 0, 0, 0, monoid, dtype,
+             acc, touched, stream);
+}
+
+// The lane form: one launch folds `lanes` edge streams over the same tiles,
+// lane b on blockIdx.y == b.  Lane b's vals and valid start edge_stride * b
+// edges in, its part_active part_stride * b entries (>= k), its acc and
+// touched out_stride * b (>= k*q); 1 <= lanes <= 65,535.  The ring streams a
+// lane's arrays where both its bases are 16-byte aligned (edge_stride a
+// multiple of 16 keeps every lane's so), plain loads serve the launch
+// otherwise.  The rest as segment_combine.
+extern "C" int segment_combine_lanes(
+    const void* vals, const void* valid, const void* dst_local,
+    const void* tile_src_part, const void* part_tile_off,
+    const void* part_active, int k, int q, int edge_tile, int chunk,
+    int lanes, long long edge_stride, long long part_stride,
+    long long out_stride, int monoid, int dtype, void* acc, void* touched,
+    void* stream) {
+  return run(vals, valid, dst_local, tile_src_part, part_tile_off,
+             part_active, k, q, edge_tile, chunk, lanes, edge_stride,
+             part_stride, out_stride, monoid, dtype, acc, touched, stream);
 }
 
 extern "C" const char* segment_combine_error_string(int code) {

@@ -83,6 +83,9 @@ struct SpmvEdges {
   int elems[4];
   const float* x;
   int k, q;
+  long long lane_stride[4] = {};   // one lane only
+
+  __device__ void to_lane(long long) {}
 
   struct Edge {
     long long xi = 0;   // the source's index into x

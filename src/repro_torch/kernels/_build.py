@@ -13,6 +13,11 @@ raises on a non-zero code and otherwise adds one to the kernel's
 ``launches`` count, the evidence that a run went through the kernel.  A
 kernel with regimes chosen by shape in its C entry (``dc_gather``) also
 counts its launches by regime (``CudaKernel.regimes``).
+
+The batched engine's lane forms (``fused_dc_lanes``, ``dc_gather_lanes``,
+``segment_combine_lanes``) are second C entries of the same sources: each is
+a :class:`CudaKernel` of its own, with its own count, that ``shares`` the
+library of its single-lane kernel.
 """
 from __future__ import annotations
 
@@ -58,20 +63,25 @@ class CudaKernel:
     """One CUDA source, its shared library and the count of its launches."""
 
     def __init__(self, name: str, source: str, argtypes: tuple,
-                 regimes: tuple = ()):
+                 regimes: tuple = (), shares: "CudaKernel" = None):
         self.name = name
         self.source = CSRC / source
         self.argtypes = argtypes
+        # another entry of a kernel's library: built and loaded through it
+        self.shares = shares
         self.launches = 0
         # launches by regime, for a kernel whose C entry reports the regime
         # it chose (its code indexes ``regimes``); the wrapper counts them
         self.regimes = dict.fromkeys(regimes, 0)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
-        self._fn = None          # the bound C entry, once loaded
+        self._fn = self._err = None   # the bound C entry and its error
+                                      # strings, once loaded
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
+        if self.shares is not None:
+            return self.shares.library_path()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for f in sorted(self.source.parent.glob("*.cuh")) + [self.source]:
             h.update(f.read_bytes())
@@ -83,7 +93,7 @@ class CudaKernel:
         Returns ``(process, temporary path)`` for :meth:`finish_build`, or
         None when there is nothing to build."""
         out = self.library_path()
-        if out.exists():
+        if out.exists() or self.shares is not None:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -105,13 +115,17 @@ class CudaKernel:
     def lib(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                self.finish_build(self.start_build())
-                lib = ctypes.CDLL(str(self.library_path()))
+                if self.shares is not None:
+                    lib, owner = self.shares.lib(), self.shares.name
+                else:
+                    self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(str(self.library_path()))
+                    owner = self.name
                 fn = getattr(lib, self.name)
                 fn.argtypes, fn.restype = list(self.argtypes), ctypes.c_int
-                err = getattr(lib, f"{self.name}_error_string")
+                err = getattr(lib, f"{owner}_error_string")
                 err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-                self._lib, self._fn = lib, fn
+                self._lib, self._fn, self._err = lib, fn, err
             return self._lib
 
     def launch(self, *args) -> None:
@@ -119,7 +133,7 @@ class CudaKernel:
             self.lib()
         rc = self._fn(*args)
         if rc != 0:
-            msg = getattr(self._lib, f"{self.name}_error_string")(rc).decode()
+            msg = self._err(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} "
                                f"({msg})")
         self.launches += 1
@@ -155,12 +169,40 @@ SEGMENT_COMBINE = CudaKernel("segment_combine", "segment_combine.cu", (
     I32, I32, I32, I32,  # k, q, edge_tile, chunk
     I32, I32,           # monoid, dtype
     P, P, P))           # acc, touched, stream
+# The lane forms: the single-lane arguments with the lane count and the
+# 64-bit lane strides (entries) of the per-lane inputs and outputs.
+FUSED_DC_LANES = CudaKernel("fused_dc_lanes", "fused_dc.cu", (
+    P, P, I64, I64,     # table, table_valid, table_len, table_stride
+    P, P, P, P,         # src_local, dst_local, edge_valid, w
+    P, P,               # tile_src_part, part_tile_off
+    I32, I32, I32, I32,  # k, q, edge_tile, chunk
+    I64, I32, I64,      # num_segments, lanes, out_stride
+    I32, I32, I32,      # monoid, dtype, edge_fn
+    P, P, P), shares=FUSED_DC)  # acc, touched, stream
+DC_GATHER_LANES = CudaKernel("dc_gather_lanes", "dc_gather.cu", (
+    P, P, P, P, P,      # x, active, png_src_local, png_valid, png_tile_part
+    P, I64,             # piece_tiles, n_pieces
+    I64, I32, I32, I32,  # nm, k, q, msg_tile
+    I32, I64, I64,      # lanes, x_stride, out_stride
+    ctypes.c_uint,      # ident_bits
+    P, I32,             # out, device index
+    ctypes.POINTER(ctypes.c_int), P),  # regime (set by the call), stream
+    regimes=("l2", "staged"), shares=DC_GATHER)
+SEGMENT_COMBINE_LANES = CudaKernel("segment_combine_lanes",
+                                   "segment_combine.cu", (
+    P, P, P,            # vals, valid, dst_local
+    P, P, P,            # tile_src_part, part_tile_off, part_active
+    I32, I32, I32, I32,  # k, q, edge_tile, chunk
+    I32, I64, I64, I64,  # lanes, edge_stride, part_stride, out_stride
+    I32, I32,           # monoid, dtype
+    P, P, P), shares=SEGMENT_COMBINE)  # acc, touched, stream
 SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
     P, P, P, P, P,      # x, src_local, dst_local, valid, w
     P, P,               # tile_src_part, part_tile_off
     I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
     P, P))              # y, stream
-KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK)
+KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK,
+           FUSED_DC_LANES, DC_GATHER_LANES, SEGMENT_COMBINE_LANES)
 
 
 def build_all() -> None:
@@ -184,7 +226,9 @@ def reset_launch_counts() -> None:
         k.regimes = dict.fromkeys(k.regimes, 0)
 
 
-MONOID_CODES = {"add": 0, "min": 1, "max": 2}
+# ``or`` folds as ``max`` (its reference fold is ``segment_max`` over
+# uint32, whose identity 0 is also or's), so it takes max's code
+MONOID_CODES = {"add": 0, "min": 1, "max": 2, "or": 2}
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
 
 

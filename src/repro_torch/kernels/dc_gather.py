@@ -22,6 +22,13 @@ Two versions of one function, chosen by the device of the tensors:
     the L2 regime.  ``_build.DC_GATHER.regimes`` counts the launches of each.
 
 A slot whose source lies outside ``[0, k*q)`` gets the identity in both.
+
+``[B, k, q]`` values and activity write ``B`` lanes of bins, ``[B, NM]``
+(the batched engine's queries): the reference's vmapped scatter.  On a card
+that is the kernel's lane form, ``dc_gather_lanes``: one launch, lane ``b``
+on ``blockIdx.y``, in the regime its C entry chooses for every lane
+(``_build.DC_GATHER_LANES.regimes``); staging also needs each lane's rows
+16-byte aligned, which ``q % 16 == 0`` gives a contiguous input.
 """
 from __future__ import annotations
 
@@ -87,14 +94,16 @@ def identity_bits(monoid: str, dtype: torch.dtype) -> int:
 
 def ref_dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
                   k: int, q: int, msg_tile: int, monoid: str = "add"):
-    """Plain PyTorch version with :func:`dc_gather`'s contract."""
+    """Plain PyTorch version with :func:`dc_gather`'s contract, lanes
+    included."""
     part = png_tile_part.to(torch.int64).repeat_interleave(msg_tile)
     local = png_src_local.to(torch.int64)
     inside = (local >= 0) & (local < q) & (part >= 0) & (part < k)
     src = torch.where(inside, part * q + local, 0)
+    flat = x.shape[:-2] + (-1,)
     ok = png_valid.to(torch.bool) & inside \
-        & active.reshape(-1).to(torch.bool)[src]
-    vals = M.as_bits(x.reshape(-1))[src]
+        & active.reshape(flat).to(torch.bool).index_select(-1, src)
+    vals = M.as_bits(x.reshape(flat)).index_select(-1, src)
     ident = M.full((1,), M.identity_value(monoid, x.dtype), x.dtype,
                    x.device)
     return M.from_bits(torch.where(ok, vals, M.as_bits(ident)), x.dtype)
@@ -103,16 +112,22 @@ def ref_dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
 def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
                    k: int, q: int, msg_tile: int, monoid: str = "add",
                    pieces=None):
-    """Launch ``csrc/dc_gather.cu`` on the current stream.
+    """Launch ``csrc/dc_gather.cu`` on the current stream: ``dc_gather``
+    for ``[k, q]`` inputs, its lane form ``dc_gather_lanes`` for ``[B, k,
+    q]``.
 
     ``pieces`` (``int64[n + 1]`` on the device, from :func:`dc_pieces` on
     this ``png_tile_part``, or any ascending offsets that cover its tiles
     once) lets the kernel take the staged regime where the shape allows;
     without them it takes the L2 regime."""
     nm, dev = png_src_local.shape[0], x.device
-    _build.check_cuda(x, "x", shape=(k, q))
+    lead = tuple(x.shape[:-2])
+    if len(lead) > 1 or 0 in lead:
+        raise ValueError(f"x must be [k, q] or [B, k, q] with B >= 1, got "
+                         f"{tuple(x.shape)}")
+    _build.check_cuda(x, "x", shape=lead + (k, q))
     _build.dtype_code(x.dtype)
-    _build.check_cuda(active, "active", torch.bool, (k, q), dev)
+    _build.check_cuda(active, "active", torch.bool, lead + (k, q), dev)
     _build.check_cuda(png_src_local, "png_src_local", torch.int32, (nm,), dev)
     _build.check_cuda(png_valid, "png_valid", torch.bool, (nm,), dev)
     if msg_tile < 1 or nm % msg_tile:
@@ -125,16 +140,19 @@ def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
         if pieces.dim() != 1 or pieces.shape[0] < 2:
             raise ValueError("pieces must be 1-D tile offsets, at least 2")
         n_pieces = pieces.shape[0] - 1
-    out = torch.empty(nm, dtype=x.dtype, device=dev)
+    out = torch.empty(lead + (nm,), dtype=x.dtype, device=dev)
     if nm:
         regime = ctypes.c_int(-1)
-        _build.DC_GATHER.launch(
-            x.data_ptr(), active.data_ptr(), png_src_local.data_ptr(),
-            png_valid.data_ptr(), png_tile_part.data_ptr(),
-            pieces.data_ptr() if n_pieces else None, n_pieces, nm, k, q,
-            msg_tile, identity_bits(monoid, x.dtype), out.data_ptr(),
-            dev.index, ctypes.byref(regime), _build.stream_handle(dev.index))
-        _build.DC_GATHER.count_regime(regime.value)
+        args = (x.data_ptr(), active.data_ptr(), png_src_local.data_ptr(),
+                png_valid.data_ptr(), png_tile_part.data_ptr(),
+                pieces.data_ptr() if n_pieces else None, n_pieces, nm, k, q,
+                msg_tile)
+        rest = (identity_bits(monoid, x.dtype), out.data_ptr(), dev.index,
+                ctypes.byref(regime), _build.stream_handle(dev.index))
+        kern = _build.DC_GATHER_LANES if lead else _build.DC_GATHER
+        lanes = (lead[0], k * q, nm) if lead else ()
+        kern.launch(*args, *lanes, *rest)
+        kern.count_regime(regime.value)
     return out
 
 
@@ -147,13 +165,14 @@ def dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
 
     Args:
       x:             [k, q] per-vertex scatter values (float32, int32 or
-                     uint32).
-      active:        [k, q] bool per-vertex activity.
+                     uint32), or [B, k, q]: B lanes of bins.
+      active:        x's shape, bool per-vertex activity.
       png_src_local: [NM] int32 source id within its partition.
       png_valid:     [NM] bool slot validity (False on pads).
       png_tile_part: [NM / msg_tile] int32 source partition per slot tile.
     Returns:
-      [NM] message values, the identity on invalid and inactive slots.
+      [NM] (or [B, NM]) message values, the identity on invalid and inactive
+      slots.
     """
     if monoid not in _build.MONOID_CODES:
         raise ValueError(f"unknown monoid {monoid!r}")

@@ -54,7 +54,7 @@ def segment_fold(vals, valid, ids, num_segments: int, monoid: str = "add"):
     acc = torch.full((ns + 1,), ident, dtype=wide.dtype, device=vals.device)
     if monoid == "add":
         acc.index_add_(0, ids, wide)
-    else:
+    else:   # or folds as max, as in the reference
         with warnings.catch_warnings():   # "index_reduce() is in beta"
             warnings.simplefilter("ignore", UserWarning)
             acc.index_reduce_(0, ids, wide,
@@ -63,6 +63,24 @@ def segment_fold(vals, valid, ids, num_segments: int, monoid: str = "add"):
     touched = torch.zeros(ns + 1, dtype=torch.bool, device=vals.device)
     touched.index_fill_(0, ids, True)
     return M.narrow(acc[:ns], dtype), touched[:ns]
+
+
+def lane_segment_fold(vals, valid, ids, num_segments: int,
+                      monoid: str = "add"):
+    """:func:`segment_fold` of ``B`` lanes at once: ``vals`` and ``valid``
+    ``[B, N]``, ``ids`` ``[N]`` (shared) or ``[B, N]``; returns ``(acc,
+    touched)`` ``[B, num_segments]``.  The reference's vmap rule: one fold
+    over the flattened ``lane * num_segments + id`` segment space, with ids
+    outside ``[0, num_segments)`` dropped within their lane."""
+    ns = int(num_segments)
+    lanes = vals.shape[0]
+    ids = ids.to(torch.int64)
+    keep = valid.to(torch.bool) & (ids >= 0) & (ids < ns)
+    lane = torch.arange(lanes, device=vals.device)[:, None]
+    flat = (lane * ns + ids).reshape(-1)
+    acc, touched = segment_fold(vals.reshape(-1), keep.reshape(-1), flat,
+                                lanes * ns, monoid)
+    return acc.view(lanes, ns), touched.view(lanes, ns)
 
 
 def segment_fold_cuda(vals, valid, ids, num_segments: int,

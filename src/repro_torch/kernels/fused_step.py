@@ -7,11 +7,16 @@ edge_valid``; apply the optional edge function; fold add/min/max into
 ``[0, num_segments)`` is dropped.  Neither the ``[NM]`` message bins nor an
 ``[NE]`` edge-value stream is ever written.
 
+A ``[B, M]`` table and validity fold ``B`` lanes (the batched engine's
+queries) into ``[B, num_segments]``: the reference's vmapped step.
+
 Two versions, chosen by the device of the tensors:
 
   * :func:`ref_fused_scatter_fold`, the plain PyTorch version (CPU tensors;
     the oracle of the kernel on the card), on the global ``idx`` and
-    ``dst`` of the reference's contract;
+    ``dst`` of the reference's contract; lanes fold as the reference's
+    vmap rule does, over a flattened ``lane * num_segments + dst`` segment
+    space (:func:`repro_torch.kernels.fold_block.lane_segment_fold`);
   * :func:`fused_dc_cuda`, the CUDA kernel ``csrc/fused_dc.cu`` (CUDA
     tensors): one thread block per destination partition, accumulating in
     shared memory.  It reads the edges in the layout's tile form,
@@ -22,7 +27,8 @@ Two versions, chosen by the device of the tensors:
     :class:`repro_torch.kernels.ops.FusedDCKernel` checks once per layout
     that this is the layout's ``edge_dst`` on every valid edge, and
     :func:`global_edges` builds ``idx`` and ``dst`` from the tiles for the
-    plain version.
+    plain version.  Lanes take the kernel's lane form (``fused_dc_lanes``):
+    one launch, lane ``b`` on ``blockIdx.y``.
 
 The CUDA kernel knows one edge function, :func:`add_weight`; any other
 ``apply_weight`` raises on CUDA tensors.
@@ -36,7 +42,7 @@ import torch
 
 from ..core import monoid as M
 from . import _build
-from .fold_block import segment_fold
+from .fold_block import lane_segment_fold, segment_fold
 
 ENV_FUSED = "REPRO_FUSED"
 
@@ -96,24 +102,32 @@ def global_edges(tile_src_part, tile_dst_part, edge_src_local, edge_dst_local,
 
 def ref_fused_scatter_fold(mono, table, table_valid, idx, edge_valid, dst,
                            num_segments: int, apply_weight=None, w=None):
-    """Plain PyTorch version with :func:`fused_scatter_fold`'s contract."""
-    idx = idx.to(torch.int64).clamp(0, table.shape[0] - 1)
-    vals = M.from_bits(M.as_bits(table)[idx], table.dtype)
-    valid = table_valid.to(torch.bool)[idx] & edge_valid.to(torch.bool)
+    """Plain PyTorch version with :func:`fused_scatter_fold`'s contract,
+    lanes included."""
+    idx = idx.to(torch.int64).clamp(0, table.shape[-1] - 1)
+    vals = M.from_bits(M.as_bits(table).index_select(-1, idx), table.dtype)
+    valid = (table_valid.to(torch.bool).index_select(-1, idx)
+             & edge_valid.to(torch.bool))
     if apply_weight is not None:
         vals = apply_weight(vals, w).to(mono.dtype)
-    return segment_fold(vals, valid, dst, num_segments, mono.name)
+    fold = segment_fold if table.dim() == 1 else lane_segment_fold
+    return fold(vals, valid, dst, num_segments, mono.name)
 
 
 def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
                   monoid: str, tiles: EdgeTiles, apply_weight=None, w=None):
-    """Launch ``csrc/fused_dc.cu`` on the current stream."""
-    ns, m = int(num_segments), table.shape[0]
+    """Launch ``csrc/fused_dc.cu`` on the current stream: ``fused_dc`` for
+    a ``[M]`` table, its lane form ``fused_dc_lanes`` for ``[B, M]``."""
+    ns, shape = int(num_segments), tuple(table.shape)
     dev = table.device
+    if len(shape) not in (1, 2) or 0 in shape:
+        raise ValueError(f"table must be [M] or [B, M] with B, M >= 1, got "
+                         f"{shape}")
+    m, lanes = shape[-1], shape[0] if len(shape) == 2 else None
     nt, q, et = tiles.tile_src_part.shape[0], int(tiles.q), int(tiles.edge_tile)
     k, ne = tiles.part_tile_off.shape[0] - 1, nt * et
-    _build.check_cuda(table, "table", shape=(m,))
-    _build.check_cuda(table_valid, "table_valid", torch.bool, (m,), dev)
+    _build.check_cuda(table, "table")
+    _build.check_cuda(table_valid, "table_valid", torch.bool, shape, dev)
     _build.check_cuda(edge_valid, "edge_valid", torch.bool, (ne,), dev)
     _build.check_cuda(tiles.edge_src_local, "edge_src_local", torch.int32,
                       (ne,), dev)
@@ -134,17 +148,23 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
         if table.dtype != torch.float32:
             raise TypeError("add_weight needs a float32 table")
         _build.check_cuda(w, "w", torch.float32, (ne,), dev)
-    acc = torch.empty(ns, dtype=table.dtype, device=dev)
-    touched = torch.empty(ns, dtype=torch.bool, device=dev)
-    _build.FUSED_DC.launch(
-        table.data_ptr(), table_valid.data_ptr(), m,
-        tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
-        edge_valid.data_ptr(),
-        w.data_ptr() if apply_weight is not None else None,
-        tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(), k, q,
-        et, min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
-        _build.dtype_code(table.dtype), _EDGE_FNS[apply_weight],
-        acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
+    acc = torch.empty(shape[:-1] + (ns,), dtype=table.dtype, device=dev)
+    touched = torch.empty(shape[:-1] + (ns,), dtype=torch.bool, device=dev)
+    edges = (tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
+             edge_valid.data_ptr(),
+             w.data_ptr() if apply_weight is not None else None,
+             tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(),
+             k, q, et, min(q, MAX_CHUNK), ns)
+    codes = (_build.MONOID_CODES[monoid], _build.dtype_code(table.dtype),
+             _EDGE_FNS[apply_weight])
+    outs = (acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
+    if lanes is None:
+        _build.FUSED_DC.launch(table.data_ptr(), table_valid.data_ptr(), m,
+                               *edges, *codes, *outs)
+    else:
+        _build.FUSED_DC_LANES.launch(
+            table.data_ptr(), table_valid.data_ptr(), m, m, *edges, lanes,
+            ns, *codes, *outs)
     return acc, touched
 
 
@@ -156,9 +176,10 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
     Contract (the reference's ``fused_dc``):
 
       table:       [M] source value per table slot (the engine passes the
-                   vertex message array + identity sentinel).
-      table_valid: [M] bool; a slot's messages contribute nothing when its
-                   source is invalid (inactive / non-DC).
+                   vertex message array + identity sentinel), or [B, M]: B
+                   lanes over the same edges.
+      table_valid: table's shape, bool; a slot's messages contribute
+                   nothing when its source is invalid (inactive / non-DC).
       idx:         [NE] int32 table slot per edge (clamped into range).
       edge_valid:  [NE] bool static structural validity per edge.
       dst:         [NE] int32 destination segment per edge.
@@ -168,7 +189,8 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
       apply_weight, w: optional edge function ``f(vals, w)`` and [NE]
                    weights.
     Returns:
-      acc [num_segments] monoid fold, touched [num_segments] bool.
+      acc [num_segments] monoid fold, touched [num_segments] bool (with a
+      leading [B] for B lanes).
     """
     if monoid not in _build.MONOID_CODES:
         raise ValueError(f"unknown monoid {monoid!r}")

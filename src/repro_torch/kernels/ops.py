@@ -6,6 +6,10 @@ layout-bound classes bind a layout once: they move its arrays to the
 engine's device and check the preconditions of the CUDA kernels, per tile
 on the host and, for the fused kernel, per edge on the device.
 
+``FusedDCKernel``, ``GatherKernel`` and ``ScatterKernel`` also take inputs
+with a leading lane axis ``[B, ...]``, the batched engine's queries, and then
+return ``[B, ...]``: on a card, one launch of the kernel's lane form.
+
 Each takes ``plain=True`` to run the plain PyTorch versions on any device;
 ``chip_smoke.py`` uses that to hold a whole app run on the card against the
 kernels.  Otherwise the device of the tensors decides: the plain version on
@@ -111,7 +115,7 @@ def _check_edge_dst(layout, tiles: "_TileGeometry", edge_valid) -> None:
 
 class FusedDCKernel(_TileGeometry):
     """Fused DC scatter→fold bound to a layout: ``(table, table_valid) ->
-    (acc, touched)`` over ``[n_pad + 1]``.
+    (acc, touched)`` over ``[n_pad + 1]`` (or ``[B, n_pad + 1]``).
 
     The CUDA kernel reads the layout's tile form (:class:`EdgeTiles`), so
     binding a layout moves its tile arrays to the device and checks the
@@ -166,8 +170,9 @@ class FusedDCKernel(_TileGeometry):
 class GatherKernel(_TileGeometry):
     """Gather-phase fold of the composed DC path bound to a layout:
     ``(edge_vals, edge_valid, part_active) -> (acc, touched)`` over
-    ``[n_pad]``.  A destination partition with no tiles gets the identity
-    and is untouched, as in the reference."""
+    ``[n_pad]`` (``[B, NE]``, ``[B, NE]``, ``[B, k]`` -> ``[B, n_pad]`` for
+    B lanes).  A destination partition with no tiles gets the identity and
+    is untouched, as in the reference."""
 
     def __init__(self, layout, monoid_name: str, dtype: torch.dtype, device,
                  plain: bool = False):
@@ -192,12 +197,14 @@ class GatherKernel(_TileGeometry):
                 **self.geometry())
         acc = M.where(self.has_tiles, acc, self.ident)
         touched = touched & self.has_tiles
-        return acc.reshape(-1), touched.reshape(-1)
+        flat = acc.shape[:-2] + (-1,)
+        return acc.reshape(flat), touched.reshape(flat)
 
 
 class ScatterKernel:
     """DC scatter of the composed path bound to a layout: ``(x_flat,
-    active_flat) -> [NM]`` message bins.
+    active_flat) -> [NM]`` message bins (``[B, n_pad]`` inputs -> ``[B,
+    NM]`` for B lanes).
 
     On a card, binding the layout also cuts its slot tiles into the CUDA
     kernel's staged pieces (:func:`dc_pieces`, host NumPy over the
@@ -228,8 +235,9 @@ class ScatterKernel:
                 self.pieces = torch.from_numpy(off).to(self.device)
 
     def __call__(self, x_flat, active_flat):
-        x = x_flat.to(self.dtype).reshape(self.k, self.q)
-        active = active_flat.to(torch.bool).reshape(self.k, self.q)
+        grid = x_flat.shape[:-1] + (self.k, self.q)
+        x = x_flat.to(self.dtype).reshape(grid)
+        active = active_flat.to(torch.bool).reshape(grid)
         args = (x, active, self.png_src_local, self.png_valid,
                 self.png_tile_part)
         geo = dict(k=self.k, q=self.q, msg_tile=self.msg_tile,

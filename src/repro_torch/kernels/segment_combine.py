@@ -13,17 +13,23 @@ contribute nothing.  A partition that no reset reaches is the identity,
 untouched (the TPU kernel leaves it unwritten; ``GatherKernel`` masks it in
 both packages).
 
+``[B, NE]`` edge values and validity with ``[B, k]`` ``part_active`` fold
+``B`` lanes (the batched engine's queries) into ``[B, k, q]``, each lane
+skipping the tiles of its own inactive source partitions.
+
 Two versions, chosen by the device of the tensors:
 
   * :func:`ref_segment_combine`, the plain PyTorch version (CPU tensors; the
-    oracle of the kernel on the card);
+    oracle of the kernel on the card); lanes fold as the reference's vmap
+    rule does, over a flattened ``lane * k * q + dst`` segment space;
   * :func:`segment_combine_cuda`, the CUDA kernel ``csrc/segment_combine.cu``
     (CUDA tensors): one thread block per destination partition, accumulating
     in shared memory.  It reads the tiles' destination structure as
     ``part_tile_off`` (tile offset of each destination partition, the
     ``tile_dst_part`` / ``tile_first`` of a destination-major layout), which
     :class:`repro_torch.kernels.ops.GatherKernel` derives and checks once
-    per layout.
+    per layout.  Lanes take its lane form (``segment_combine_lanes``): one
+    launch, lane ``b`` on ``blockIdx.y``.
 
 The reference folds float ``add`` by a one-hot matmul, so there a single
 non-finite message turns its whole partition into NaN; both versions here
@@ -34,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fold_block import segment_fold
+from .fold_block import lane_segment_fold, segment_fold
 from .fused_step import MAX_CHUNK
 
 
@@ -58,45 +64,61 @@ def live_tiles(tile_dst_part, tile_first, k: int):
 def ref_segment_combine(edge_vals, edge_valid, edge_dst_local, tile_dst_part,
                         tile_src_part, tile_first, part_active, *, k: int,
                         q: int, edge_tile: int, monoid: str = "add"):
-    """Plain PyTorch version with :func:`segment_combine`'s contract."""
+    """Plain PyTorch version with :func:`segment_combine`'s contract,
+    lanes included."""
     src = tile_src_part.to(torch.int64)
     src_ok = (src >= 0) & (src < k)
     live = live_tiles(tile_dst_part, tile_first, k) & src_ok \
-        & part_active.to(torch.bool)[torch.where(src_ok, src, 0)]
+        & part_active.to(torch.bool)[..., torch.where(src_ok, src, 0)]
     dst_local = edge_dst_local.to(torch.int64)
-    keep = edge_valid.to(torch.bool) & live.repeat_interleave(edge_tile) \
+    keep = edge_valid.to(torch.bool) \
+        & live.repeat_interleave(edge_tile, dim=-1) \
         & (dst_local >= 0) & (dst_local < q)
     seg = tile_dst_part.to(torch.int64).repeat_interleave(edge_tile) * q \
         + dst_local
-    acc, touched = segment_fold(edge_vals, keep, seg, k * q, monoid)
-    return acc.view(k, q), touched.view(k, q)
+    fold = segment_fold if edge_vals.dim() == 1 else lane_segment_fold
+    acc, touched = fold(edge_vals, keep, seg, k * q, monoid)
+    shape = edge_vals.shape[:-1] + (k, q)
+    return acc.view(shape), touched.view(shape)
 
 
 def segment_combine_cuda(edge_vals, edge_valid, edge_dst_local, tile_src_part,
                          part_tile_off, part_active, *, k: int, q: int,
                          edge_tile: int, monoid: str = "add"):
-    """Launch ``csrc/segment_combine.cu`` on the current stream."""
+    """Launch ``csrc/segment_combine.cu`` on the current stream:
+    ``segment_combine`` for an ``[NE]`` stream, its lane form
+    ``segment_combine_lanes`` for ``[B, NE]``."""
     nt, dev = tile_src_part.shape[0], edge_vals.device
     ne = nt * edge_tile
-    _build.check_cuda(edge_vals, "edge_vals", shape=(ne,))
-    _build.check_cuda(edge_valid, "edge_valid", torch.bool, (ne,), dev)
+    lead = tuple(edge_vals.shape[:-1])
+    if len(lead) > 1 or 0 in lead:
+        raise ValueError(f"edge_vals must be [NE] or [B, NE] with B >= 1, got "
+                         f"{tuple(edge_vals.shape)}")
+    _build.check_cuda(edge_vals, "edge_vals", shape=lead + (ne,))
+    _build.check_cuda(edge_valid, "edge_valid", torch.bool, lead + (ne,), dev)
     _build.check_cuda(edge_dst_local, "edge_dst_local", torch.int32, (ne,),
                       dev)
     _build.check_cuda(tile_src_part, "tile_src_part", torch.int32, (nt,), dev)
     _build.check_cuda(part_tile_off, "part_tile_off", torch.int64, (k + 1,),
                       dev)
-    _build.check_cuda(part_active, "part_active", torch.bool, (k,), dev)
+    _build.check_cuda(part_active, "part_active", torch.bool, lead + (k,),
+                      dev)
     if k < 1 or q < 1 or edge_tile < 1:
         raise ValueError(f"need k, q and edge_tile >= 1, got k={k} q={q} "
                          f"edge_tile={edge_tile}")
-    acc = torch.empty((k, q), dtype=edge_vals.dtype, device=dev)
-    touched = torch.empty((k, q), dtype=torch.bool, device=dev)
-    _build.SEGMENT_COMBINE.launch(
-        edge_vals.data_ptr(), edge_valid.data_ptr(), edge_dst_local.data_ptr(),
-        tile_src_part.data_ptr(), part_tile_off.data_ptr(),
-        part_active.data_ptr(), k, q, edge_tile, min(q, MAX_CHUNK),
-        _build.MONOID_CODES[monoid], _build.dtype_code(edge_vals.dtype),
-        acc.data_ptr(), touched.data_ptr(), _build.stream_handle())
+    acc = torch.empty(lead + (k, q), dtype=edge_vals.dtype, device=dev)
+    touched = torch.empty(lead + (k, q), dtype=torch.bool, device=dev)
+    args = (edge_vals.data_ptr(), edge_valid.data_ptr(),
+            edge_dst_local.data_ptr(), tile_src_part.data_ptr(),
+            part_tile_off.data_ptr(), part_active.data_ptr(), k, q, edge_tile,
+            min(q, MAX_CHUNK))
+    codes = (_build.MONOID_CODES[monoid], _build.dtype_code(edge_vals.dtype))
+    outs = (acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
+    if not lead:
+        _build.SEGMENT_COMBINE.launch(*args, *codes, *outs)
+    else:
+        _build.SEGMENT_COMBINE_LANES.launch(*args, lead[0], ne, k, k * q,
+                                            *codes, *outs)
     return acc, touched
 
 
@@ -107,17 +129,20 @@ def segment_combine(edge_vals, edge_valid, edge_dst_local, tile_dst_part,
 
     Args:
       edge_vals:      [NE] message value per edge, gather order (float32,
-                      int32 or uint32).
-      edge_valid:     [NE] bool validity (False on pads and inactive-source
-                      slots).
+                      int32 or uint32), or [B, NE]: B lanes over the same
+                      tiles.
+      edge_valid:     edge_vals' shape, bool validity (False on pads and
+                      inactive-source slots).
       edge_dst_local: [NE] int32 destination id within its partition.
       tile_dst_part, tile_src_part: [NT] int32 tile geometry.
       tile_first:     [NT] bool, the first tile of its destination partition.
-      part_active:    [k] bool source-partition activity (gPartList).
+      part_active:    [k] (or [B, k]) bool source-partition activity
+                      (gPartList).
       part_tile_off:  [k+1] int64 tile offset of each destination partition
                       (CUDA only; it stands for tile_dst_part and tile_first).
     Returns:
-      acc [k, q] monoid fold, touched [k, q] bool.
+      acc [k, q] monoid fold, touched [k, q] bool (with a leading [B] for B
+      lanes).
     """
     if monoid not in _build.MONOID_CODES:
         raise ValueError(f"unknown monoid {monoid!r}")

@@ -1,3 +1,3 @@
-from .schema import IterStats
+from .schema import BatchIterStats, IterStats
 
-__all__ = ["IterStats"]
+__all__ = ["BatchIterStats", "IterStats"]

@@ -1,8 +1,10 @@
-"""Per-iteration stat record of :meth:`repro_torch.core.engine.Engine.run`.
+"""Per-iteration stat records of :meth:`repro_torch.core.engine.Engine.run`
+and :meth:`~repro_torch.core.engine.Engine.run_batched`.
 
-``IterStats`` has the fields of :class:`repro.obs.schema.IterStats`, so the
-tests compare the two engines' records field by field.  The rest of the
-reference's telemetry (events, sinks, histograms) is not ported yet.
+``IterStats`` and ``BatchIterStats`` have the fields of their namesakes in
+:mod:`repro.obs.schema`, so the tests compare the two engines' records field
+by field.  The rest of the reference's telemetry (events, sinks, histograms)
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,3 +26,12 @@ class IterStats:
     mode: str = ""
     #: vertex-program name
     program: str = ""
+
+
+@dataclasses.dataclass
+class BatchIterStats:
+    """Per-iteration stats of a :meth:`Engine.run_batched` invocation."""
+    it: int
+    lanes_active: int         # queries still converging this iteration
+    n_active: int             # active vertices summed over all lanes
+    wall_s: float

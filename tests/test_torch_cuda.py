@@ -643,3 +643,231 @@ def test_apps_on_both_lowerings_match_the_plain_route(dev, monkeypatch,
     np.testing.assert_allclose(rt.pagerank(L)["pr"],
                                rt.pagerank(L, engine=eng)["pr"], rtol=0,
                                atol=1e-6)
+
+
+# ---- the lane forms of the batched engine: one launch for B lanes ----
+
+LANE_CASES = [(m, d) for m in MONOIDS for d in sorted(DTYPES)]
+
+
+def _lanes_unaligned(t):
+    """``_unaligned`` for a ``[B, ...]`` tensor: its rows stay contiguous."""
+    return _unaligned(t.reshape(-1)).view(t.shape)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "et24"])
+def test_fused_dc_lanes_match_plain(dev, layouts, layout, lanes, aligned):
+    """``fused_dc_lanes`` against the plain lane version, every monoid x
+    dtype and f32 ``add_weight``: one launch for all lanes, lane 0 with no
+    valid source; ``wide`` splits partitions (q > MAX_CHUNK), ``et24`` and
+    the tables off a 16-byte boundary (the edges too, whose plain loads
+    then serve every lane) take plain loads."""
+    L = layouts[layout]
+    rng = np.random.default_rng(30 + lanes)
+    kern = FusedDCKernel(L, "add", torch.float32, dev)
+    w = _payload(rng, L.num_edges, torch.float32, dev)
+    arrays = (kern.edge_src_local, kern.edge_dst_local, kern.edge_valid, w)
+    if not aligned:
+        arrays = tuple(_unaligned(a) for a in arrays)
+    src_local, dst_local, edge_valid, w = arrays
+    tiles = EdgeTiles(src_local, dst_local, kern.tile_src_part,
+                      kern.part_tile_off, L.q, L.edge_tile)
+    idx, dst = global_edges(kern.tile_src_part, kern.tile_dst_part, src_local,
+                            dst_local, edge_valid, q=L.q,
+                            edge_tile=L.edge_tile, n_pad=L.n_pad)
+    ns = L.n_pad + 1
+    cases = [(m, d, None) for m, d in LANE_CASES]
+    cases += [("min", "float32", add_weight)]
+    for monoid, dtype, fn in cases:
+        table = _payload(rng, lanes * ns, DTYPES[dtype], dev).view(lanes, ns)
+        tvalid = torch.from_numpy(rng.random((lanes, ns)) < 0.6).to(dev)
+        tvalid[0] = False
+        if not aligned:
+            table, tvalid = _lanes_unaligned(table), _lanes_unaligned(tvalid)
+        wt = w if fn is not None else None
+        before = (_build.FUSED_DC.launches, _build.FUSED_DC_LANES.launches)
+        got = fused_dc_cuda(table, tvalid, edge_valid, ns, monoid, tiles,
+                            apply_weight=fn, w=wt)
+        torch.cuda.synchronize()
+        assert (_build.FUSED_DC.launches,
+                _build.FUSED_DC_LANES.launches) == (before[0], before[1] + 1)
+        want = ref_fused_scatter_fold(M.REGISTRY[monoid](DTYPES[dtype]),
+                                      table, tvalid, idx, edge_valid, dst,
+                                      ns, apply_weight=fn, w=wt)
+        _assert_bit_exact(got, want)
+        assert not got[1][0].any()
+        if lanes > 1:   # each lane is its own single-lane launch
+            _assert_bit_exact(
+                (got[0][1], got[1][1]),
+                fused_dc_cuda(table[1].contiguous(), tvalid[1].contiguous(),
+                              edge_valid, ns, monoid, tiles, apply_weight=fn,
+                              w=wt))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "et24"])
+def test_segment_combine_lanes_match_plain(dev, layouts, layout, lanes,
+                                           aligned):
+    """``segment_combine_lanes`` against the plain lane version, every
+    monoid x dtype, each lane with its own inactive source partitions (lane
+    0 with none active); ``et24`` (lanes 16-byte aligned only where the
+    edge count allows) and streams off a 16-byte boundary take plain
+    loads."""
+    L = layouts[layout]
+    rng = np.random.default_rng(40 + lanes)
+    kern = GatherKernel(L, "add", torch.float32, dev)
+    tsp = _dead_tiles(rng, L, dev)
+    geo = dict(k=L.k, q=L.q, edge_tile=L.edge_tile)
+    ne = L.num_edges
+    for monoid, dtype in LANE_CASES:
+        vals = _payload(rng, lanes * ne, DTYPES[dtype], dev).view(lanes, ne)
+        valid = torch.from_numpy(L.edge_valid & (
+            rng.random((lanes, ne)) < 0.8)).to(dev)
+        part_active = torch.from_numpy(rng.random((lanes, L.k)) < 0.6).to(dev)
+        part_active[0] = False
+        if not aligned:
+            vals, valid = _lanes_unaligned(vals), _lanes_unaligned(valid)
+        before = (_build.SEGMENT_COMBINE.launches,
+                  _build.SEGMENT_COMBINE_LANES.launches)
+        got = segment_combine_cuda(vals, valid, kern.edge_dst_local, tsp,
+                                   kern.part_tile_off, part_active,
+                                   monoid=monoid, **geo)
+        torch.cuda.synchronize()
+        assert (_build.SEGMENT_COMBINE.launches,
+                _build.SEGMENT_COMBINE_LANES.launches) == (before[0],
+                                                           before[1] + 1)
+        _assert_bit_exact(got, ref_segment_combine(
+            vals, valid, kern.edge_dst_local, kern.tile_dst_part, tsp,
+            kern.tile_first, part_active, monoid=monoid, **geo))
+        assert not got[1][0].any()
+
+
+# case: (layout, the regime its shape takes)
+DC_LANE_CASES = {"rmat": ("rmat", "staged"), "wide": ("wide", "l2"),
+                 "shuffled": ("rmat", "l2"), "q46480": ("q46480", "staged"),
+                 "mt30": ("mt30", "staged"), "unaligned": ("rmat", "staged")}
+
+
+@pytest.mark.parametrize("case", sorted(DC_LANE_CASES))
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+def test_dc_gather_lanes_regimes_match_plain(dev, layouts, row_layouts, lanes,
+                                             case):
+    """``dc_gather_lanes`` in both regimes against the plain lane version,
+    every monoid x dtype, lanes with every source, half of them and none
+    active; the regime counter moves once per launch, as the shape says."""
+    name, regime = DC_LANE_CASES[case]
+    L = {**layouts, **row_layouts}[name]
+    rng = np.random.default_rng(50 + lanes)
+    for monoid, dtype in LANE_CASES:
+        kern = ScatterKernel(L, monoid, DTYPES[dtype], dev)
+        slots, pieces = _dc_slot_arrays(rng, case, L, kern, dev)
+        geo = dict(k=L.k, q=L.q, msg_tile=L.msg_tile, monoid=monoid)
+        x = _payload(rng, lanes * L.n_pad, DTYPES[dtype], dev).view(
+            lanes, L.k, L.q)
+        density = np.array([0.0, 0.5, 1.0])[np.arange(lanes) % 3]
+        active = torch.from_numpy(
+            rng.random((lanes, L.n_pad)) < density[:, None]).to(dev).view(
+            lanes, L.k, L.q)
+        want = ref_dc_gather(x, active, *slots, **geo)
+        for p in pieces:
+            before = dict(_build.DC_GATHER_LANES.regimes)
+            got = dc_gather_cuda(x, active, *slots, **geo, pieces=p)
+            torch.cuda.synchronize()
+            moved = {r: _build.DC_GATHER_LANES.regimes[r] - before[r]
+                     for r in before}
+            assert moved == {"l2": int(regime == "l2"),
+                             "staged": int(regime == "staged")}
+            _assert_bit_exact((got,), (want,))
+
+
+def test_lane_wrappers_check_their_inputs(dev, layouts):
+    """A non-contiguous ``[B, ...]`` input, or one of the wrong shape,
+    raises before any launch."""
+    L = layouts["rmat"]
+    ns, ne = L.n_pad + 1, L.num_edges
+    fk = FusedDCKernel(L, "min", torch.float32, dev)
+    table = torch.zeros((4, ns), device=dev)
+    valid = torch.ones((4, ns), dtype=torch.bool, device=dev)
+    before = _build.FUSED_DC_LANES.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fk(table.t().contiguous().t(), valid)      # [4, ns], column-major
+    with pytest.raises(ValueError, match="contiguous"):
+        fk(torch.zeros((ns, 4), device=dev).t(), valid)
+    with pytest.raises(ValueError, match="shape"):
+        fk(table, valid[:3])
+    with pytest.raises(ValueError, match="B, M"):
+        fk(table[:0], valid[:0])
+    with pytest.raises(ValueError, match="B, M"):
+        fk(table.view(2, 2, ns), valid.view(2, 2, ns))
+    assert _build.FUSED_DC_LANES.launches == before
+    gk = GatherKernel(L, "min", torch.float32, dev)
+    vals = torch.zeros((4, ne), device=dev)
+    evalid = torch.ones((4, ne), dtype=torch.bool, device=dev)
+    parts = torch.ones((4, L.k), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        gk(vals, evalid, parts[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        gk(vals, evalid, torch.ones((L.k, 4), dtype=torch.bool,
+                                    device=dev).t())
+    with pytest.raises(ValueError, match="shape"):
+        gk(vals, evalid[:, :-1], parts)
+    sk = ScatterKernel(L, "min", torch.float32, dev)
+    x = torch.zeros((4, L.k, L.q), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc_gather_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                       torch.ones_like(x, dtype=torch.bool),
+                       sk.png_src_local, sk.png_valid, sk.png_tile_part,
+                       k=L.k, q=L.q, msg_tile=L.msg_tile)
+    with pytest.raises(ValueError, match="shape"):
+        dc_gather_cuda(x, torch.ones((3, L.k, L.q), dtype=torch.bool,
+                                     device=dev),
+                       sk.png_src_local, sk.png_valid, sk.png_tile_part,
+                       k=L.k, q=L.q, msg_tile=L.msg_tile)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_batched_apps_on_the_card_match_the_cpu(dev, monkeypatch, fused):
+    """``bfs_multi`` and ``sssp_multi`` (16 lanes) on the card, on both DC
+    lowerings, bit-exact with the CPU and with sequential runs on the card;
+    every batched step launched each lane kernel of its lowering once, and
+    nothing else."""
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    g = rmat(10, 8, seed=5, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    sources = np.linspace(0, L.n - 1, 16).astype(np.int64)
+    lane_kernels = ((_build.FUSED_DC_LANES,) if fused == "1" else
+                    (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES))
+    for app, keys in ((rt.bfs_multi, ("level", "parent")),
+                      (rt.sssp_multi, ("dist",))):
+        _build.reset_launch_counts()
+        got = app(L, sources)
+        steps = len(got["stats"])
+        counts = {k.name: k.launches for k in _build.KERNELS}
+        assert counts == {k.name: steps if k in lane_kernels else 0
+                          for k in _build.KERNELS}
+        if fused == "0":
+            assert _build.DC_GATHER_LANES.regimes["staged"] == steps
+        cpu = app(L, sources, device="cpu")
+        for key in keys:
+            assert np.array_equal(got[key], cpu[key]), key
+        seq = rt.bfs if app is rt.bfs_multi else rt.sssp
+        for i in (0, 7, 15):
+            one = seq(L, int(sources[i]))
+            for key in keys:
+                assert np.array_equal(got[key][i], one[key]), (key, i)
+
+
+def test_local_apps_on_the_card_match_the_cpu(dev):
+    """Nibble, heat-kernel PageRank and PageRank-Nibble on the card against
+    the CPU (f32 adds in another order: within 1e-6)."""
+    g = rmat(10, 8, seed=5)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    src = int(np.argmax(g.out_degrees()))
+    for app, key in ((rt.nibble, "pr"), (rt.heat_kernel_pr, "hkpr"),
+                     (rt.pagerank_nibble, "ppr")):
+        np.testing.assert_allclose(app(L, src)[key],
+                                   app(L, src, device="cpu")[key], rtol=0,
+                                   atol=1e-6)
