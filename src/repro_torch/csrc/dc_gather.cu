@@ -8,9 +8,10 @@
 // p = png_tile_part[s / msg_tile] the source partition of its slot tile, when
 // png_valid[s] and that source is active, and the monoid identity otherwise.
 // A source outside [0, k*q) (a malformed layout) writes the identity.  The
-// output is a pure select of 4-byte words, so the kernel moves bits (uint32)
-// and takes the identity's bit pattern from the wrapper; one kernel serves
-// every monoid and dtype.
+// output is a pure select of words, so the kernel moves bits (uint32, or
+// unsigned long long for the 8-byte packed words of min_with_payload) and
+// takes the identity's bit pattern from the wrapper; one kernel serves every
+// monoid and dtype of a width.
 //
 // What bounds it on this card: bytes.  Each slot reads png_src_local (4 B)
 // and png_valid (1 B) and writes its value (4 B); png_tile_part is one word
@@ -36,9 +37,11 @@
 //     built for another png_tile_part, or a partition outside [0, k)) takes
 //     the L2 regime's loop for its slots, so any pieces that cover the tiles
 //     once give the same bins.  Needs q % 16 == 0 (rows start and end on
-//     16-byte boundaries), x and active 16-byte aligned, and 5q + 8 B of
-//     shared memory: q <= 46,480 (kMaxStagedQ).  At q = 32,768 a block takes
-//     163,848 B, so one block per SM, 1,024 threads.
+//     16-byte boundaries), x and active 16-byte aligned, 4-byte words, and
+//     5q + 8 B of shared memory: q <= 46,480 (kMaxStagedQ).  At q = 32,768 a
+//     block takes 163,848 B, so one block per SM, 1,024 threads.  Eight-byte
+//     words would need 9q + 8 B, which cannot stage q = 32,768; they take
+//     the L2 regime.
 //   * L2 (no pieces, or a shape the staged regime cannot take): a grid-stride
 //     loop over the slots that reads each source through L2.  Both of a
 //     slot's reads (x and active) are issued before either is used, and the
@@ -96,15 +99,17 @@ static_assert(staged_bytes(kMaxStagedQ) <= kMaxSmem &&
                   kMaxStagedQ % 16 == 0,
               "kMaxStagedQ is the widest row pair one block can stage");
 
+// W: the word moved, uint32_t or unsigned long long.
+template <typename W>
 struct Args {
-  const uint32_t* x;
+  const W* x;
   const uint8_t* active;
   const int* src_local;
   const uint8_t* valid;
   const int* tile_part;
-  uint32_t* out;
+  W* out;
   int k, q, msg_tile;
-  uint32_t ident;
+  W ident;
   long long x_stride, out_stride;   // entries between two lanes' x (and
                                     // active), and their out
 
@@ -118,9 +123,16 @@ struct Args {
 
 // Read-only gathers that the compiler may neither drop nor predicate on each
 // other, so that a slot's two reads go out together.
-__device__ __forceinline__ uint32_t ld_u32(const uint32_t* p) {
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
   uint32_t v;
   asm volatile("ld.global.nc.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long ld_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.global.nc.u64 %0, [%1];\n" : "=l"(v) : "l"(p));
   return v;
 }
 
@@ -131,18 +143,19 @@ __device__ __forceinline__ uint32_t ld_u8(const uint8_t* p) {
 }
 
 // One slot through L2.  `ok` is its png_valid byte.
-__device__ __forceinline__ uint32_t slot_l2(const Args& a, int part,
-                                            int local, uint32_t ok) {
+template <typename W>
+__device__ __forceinline__ W slot_l2(const Args<W>& a, int part, int local,
+                                     uint32_t ok) {
   const bool inside = (unsigned)local < (unsigned)a.q &&
                       (unsigned)part < (unsigned)a.k;
   const long long src = inside ? (long long)part * a.q + local : 0;
   const uint32_t act = ld_u8(a.active + src);
-  const uint32_t v = ld_u32(a.x + src);
+  const W v = ld_word(a.x + src);
   return ok != 0 && act != 0 && inside ? v : a.ident;
 }
 
 // One slot from the staged rows.
-__device__ __forceinline__ uint32_t slot_staged(const Args& a,
+__device__ __forceinline__ uint32_t slot_staged(const Args<uint32_t>& a,
                                                 const uint32_t* s_x,
                                                 const uint8_t* s_act,
                                                 int local, uint32_t ok) {
@@ -154,8 +167,8 @@ __device__ __forceinline__ uint32_t slot_staged(const Args& a,
 // Slots [s0, s1) through L2: thread `tid` of `nthreads` takes slots tid,
 // tid + nthreads, ..., one per pass, so that each gather instruction of a
 // warp covers 32 consecutive slots.
-template <typename Index>
-__device__ void l2_range(const Args& a, Index s0, Index s1, Index tid,
+template <typename W, typename Index>
+__device__ void l2_range(const Args<W>& a, Index s0, Index s1, Index tid,
                          Index nthreads) {
   const Index mt = (Index)a.msg_tile;
   for (Index s = s0 + tid; s < s1; s += nthreads) {
@@ -168,10 +181,10 @@ __device__ void l2_range(const Args& a, Index s0, Index s1, Index tid,
 
 // With LANES, a block first moves a to its lane (blockIdx.y); the
 // single-lane instantiations carry no lane offsets.
-template <typename Index, bool LANES>
-__global__ void __launch_bounds__(kL2Threads) l2_kernel(Args a, Index nm) {
+template <typename W, typename Index, bool LANES>
+__global__ void __launch_bounds__(kL2Threads) l2_kernel(Args<W> a, Index nm) {
   if constexpr (LANES) a.to_lane(blockIdx.y);
-  l2_range<Index>(a, 0, nm, (Index)blockIdx.x * kL2Threads + threadIdx.x,
+  l2_range<W, Index>(a, 0, nm, (Index)blockIdx.x * kL2Threads + threadIdx.x,
                   (Index)gridDim.x * kL2Threads);
 }
 
@@ -179,7 +192,8 @@ __global__ void __launch_bounds__(kL2Threads) l2_kernel(Args a, Index nm) {
 // VEC, a thread takes four consecutive slots at a time.
 template <typename Index, bool VEC, bool LANES>
 __global__ void __launch_bounds__(kStagedThreads, 1)
-    staged_kernel(Args a, const long long* __restrict__ piece_tiles) {
+    staged_kernel(Args<uint32_t> a,
+                  const long long* __restrict__ piece_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (LANES) a.to_lane(blockIdx.y);
   const long long t0 = piece_tiles[blockIdx.x];
@@ -208,7 +222,7 @@ __global__ void __launch_bounds__(kStagedThreads, 1)
   const bool staged = __syncthreads_and(same) && live;
   const Index s0 = (Index)(t0 * a.msg_tile), s1 = (Index)(t1 * a.msg_tile);
   if (!staged) {
-    l2_range<Index>(a, s0, s1, threadIdx.x, kStagedThreads);
+    l2_range<uint32_t, Index>(a, s0, s1, threadIdx.x, kStagedThreads);
     if (live) mbar_wait(bar, 0);   // no copy may land after the block ends
     return;
   }
@@ -279,51 +293,79 @@ bool aligned(const void* p, uintptr_t to) {
   return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
 
-template <typename Index, bool VEC, bool LANES>
-cudaError_t launch(const Args& a, const long long* piece_tiles,
+// The staged regime where piece_tiles is set (4-byte words only), else L2.
+template <typename W, typename Index, bool VEC, bool LANES>
+cudaError_t launch(const Args<W>& a, const long long* piece_tiles,
                    long long n_pieces, long long nm, int lanes, int dev,
                    cudaStream_t stream) {
-  if (piece_tiles != nullptr) {
-    auto kernel = staged_kernel<Index, VEC, LANES>;
-    // per host thread and instantiation: the shared-memory limit is raised
-    // once for each device it meets
-    thread_local int raised_dev = -1;
-    if (raised_dev != dev) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return err;
-      raised_dev = dev;
+  if constexpr (sizeof(W) == 4) {
+    if (piece_tiles != nullptr) {
+      auto kernel = staged_kernel<Index, VEC, LANES>;
+      // per host thread and instantiation: the shared-memory limit is
+      // raised once for each device it meets
+      thread_local int raised_dev = -1;
+      if (raised_dev != dev) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        if (err != cudaSuccess) return err;
+        raised_dev = dev;
+      }
+      kernel<<<dim3((unsigned)n_pieces, lanes), kStagedThreads,
+               staged_bytes(a.q), stream>>>(a, piece_tiles);
+      return cudaGetLastError();
     }
-    kernel<<<dim3((unsigned)n_pieces, lanes), kStagedThreads,
-             staged_bytes(a.q), stream>>>(a, piece_tiles);
-  } else {
-    thread_local int sms_dev = -1, sms = 0;
-    if (sms_dev != dev) {
-      cudaError_t err =
-          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return err;
-      sms_dev = dev;
-    }
-    const long long want = (nm + kL2Threads - 1) / kL2Threads;
-    const long long most = (long long)sms * kL2BlocksPerSM;
-    l2_kernel<Index, LANES>
-        <<<dim3((unsigned)(want < most ? want : most), lanes), kL2Threads, 0,
-           stream>>>(a, (Index)nm);
   }
+  thread_local int sms_dev = -1, sms = 0;
+  if (sms_dev != dev) {
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms_dev = dev;
+  }
+  const long long want = (nm + kL2Threads - 1) / kL2Threads;
+  const long long most = (long long)sms * kL2BlocksPerSM;
+  l2_kernel<W, Index, LANES>
+      <<<dim3((unsigned)(want < most ? want : most), lanes), kL2Threads, 0,
+         stream>>>(a, (Index)nm);
   return cudaGetLastError();
 }
 
+// Launches the bins of `lanes` inputs of W words: the staged regime where
+// `staged`, with four slots a thread where `vec`; 32-bit slot indices where
+// nm allows.
+template <typename W>
+cudaError_t launch_words(const Args<W>& a, const long long* pieces,
+                         long long n_pieces, long long nm, int lanes,
+                         bool vec, int dev, cudaStream_t s) {
+  using I32 = uint32_t;
+  using I64 = unsigned long long;
+  auto go = [&](auto lane_form) {
+    constexpr bool L = decltype(lane_form)::value;
+    return nm <= 0x7fffffffLL
+               ? (vec ? launch<W, I32, true, L>(a, pieces, n_pieces, nm,
+                                                lanes, dev, s)
+                      : launch<W, I32, false, L>(a, pieces, n_pieces, nm,
+                                                 lanes, dev, s))
+               : (vec ? launch<W, I64, true, L>(a, pieces, n_pieces, nm,
+                                                lanes, dev, s)
+                      : launch<W, I64, false, L>(a, pieces, n_pieces, nm,
+                                                 lanes, dev, s));
+  };
+  return lanes > 1 ? go(std::true_type{}) : go(std::false_type{});
+}
+
 // Both C entries: `lanes` inputs x and active, x_stride entries apart,
-// written to `lanes` bins out_stride apart.
+// written to `lanes` bins out_stride apart; value_bytes (4 or 8) is the
+// width of x's and out's words.
 int run(const void* x, const void* active, const void* png_src_local,
         const void* png_valid, const void* png_tile_part,
         const void* piece_tiles, long long n_pieces, long long nm, int k,
         int q, int msg_tile, int lanes, long long x_stride,
-        long long out_stride, unsigned ident_bits, void* out, int device,
-        int* regime, void* stream) {
+        long long out_stride, unsigned long long ident_bits, int value_bytes,
+        void* out, int device, int* regime, void* stream) {
   if (nm < 0 || k <= 0 || q <= 0 || msg_tile <= 0 || nm % msg_tile != 0 ||
       n_pieces < 0 || n_pieces > 0x7fffffffLL || device < 0 || lanes < 1 ||
-      lanes > kMaxLanes ||
+      lanes > kMaxLanes || (value_bytes != 4 && value_bytes != 8) ||
       (lanes > 1 && (x_stride < (long long)k * q || out_stride < nm)))
     return (int)cudaErrorInvalidValue;
   // every lane's rows 16-byte aligned: the bases, and the lane strides of x
@@ -331,47 +373,44 @@ int run(const void* x, const void* active, const void* png_src_local,
   const bool rows_aligned = aligned(x, 16) && aligned(active, 16) &&
                             (lanes == 1 || x_stride % 16 == 0);
   const bool staged = piece_tiles != nullptr && n_pieces > 0 &&
-                      q % 16 == 0 && q <= kMaxStagedQ && rows_aligned;
+                      value_bytes == 4 && q % 16 == 0 && q <= kMaxStagedQ &&
+                      rows_aligned;
   *regime = staged ? kRegimeStaged : kRegimeL2;
   if (nm == 0) return 0;
-  const Args a{static_cast<const uint32_t*>(x),
-               static_cast<const uint8_t*>(active),
-               static_cast<const int*>(png_src_local),
-               static_cast<const uint8_t*>(png_valid),
-               static_cast<const int*>(png_tile_part),
-               static_cast<uint32_t*>(out),
-               k, q, msg_tile, ident_bits, x_stride, out_stride};
   const long long* pieces =
       staged ? static_cast<const long long*>(piece_tiles) : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* src_local = static_cast<const int*>(png_src_local);
+  const uint8_t* valid = static_cast<const uint8_t*>(png_valid);
+  const int* tile_part = static_cast<const int*>(png_tile_part);
+  const uint8_t* act = static_cast<const uint8_t*>(active);
+  if (value_bytes == 8) {
+    const Args<unsigned long long> a{
+        static_cast<const unsigned long long*>(x), act, src_local, valid,
+        tile_part, static_cast<unsigned long long*>(out), k, q, msg_tile,
+        ident_bits, x_stride, out_stride};
+    return (int)launch_words(a, nullptr, 0, nm, lanes, false, device, s);
+  }
+  const Args<uint32_t> a{static_cast<const uint32_t*>(x), act, src_local,
+                         valid, tile_part, static_cast<uint32_t*>(out),
+                         k, q, msg_tile, (uint32_t)ident_bits, x_stride,
+                         out_stride};
   // four slots a thread where they never straddle a tile and the slot
   // arrays allow 16-byte (png_src_local, every lane's out) and 4-byte
   // (png_valid) access
   const bool vec = msg_tile % 4 == 0 && aligned(png_src_local, 16) &&
                    aligned(png_valid, 4) && aligned(out, 16) &&
                    (lanes == 1 || out_stride % 4 == 0);
-  using I32 = uint32_t;
-  using I64 = unsigned long long;
-  auto go = [&](auto lane_form) {
-    constexpr bool L = decltype(lane_form)::value;
-    return nm <= 0x7fffffffLL
-               ? (vec ? launch<I32, true, L>(a, pieces, n_pieces, nm, lanes,
-                                             device, s)
-                      : launch<I32, false, L>(a, pieces, n_pieces, nm, lanes,
-                                              device, s))
-               : (vec ? launch<I64, true, L>(a, pieces, n_pieces, nm, lanes,
-                                             device, s)
-                      : launch<I64, false, L>(a, pieces, n_pieces, nm, lanes,
-                                              device, s));
-  };
-  return (int)(lanes > 1 ? go(std::true_type{}) : go(std::false_type{}));
+  return (int)launch_words(a, pieces, n_pieces, nm, lanes, vec, device, s);
 }
 
 }  // namespace
 
 // Returns 0 or a cudaError_t, and sets *regime to the regime it launched
 // (0: L2, 1: staged).  Pointers are device pointers on the current device,
-// whose index is `device`; x holds k*q four-byte values, active k*q bytes.
+// whose index is `device`; x holds k*q values of value_bytes (4 or 8) bytes,
+// out nm, active k*q bytes; ident_bits is the identity's bit pattern (its
+// low 32 bits for 4-byte values).  Eight-byte values take the L2 regime.
 // piece_tiles is null (the L2 regime) or holds n_pieces + 1 ascending tile
 // offsets from 0 to nm / msg_tile (dc_pieces); it is used where the shape
 // allows the staged regime.
@@ -379,11 +418,12 @@ extern "C" int dc_gather(const void* x, const void* active,
                          const void* png_src_local, const void* png_valid,
                          const void* png_tile_part, const void* piece_tiles,
                          long long n_pieces, long long nm, int k, int q,
-                         int msg_tile, unsigned ident_bits, void* out,
-                         int device, int* regime, void* stream) {
+                         int msg_tile, unsigned long long ident_bits,
+                         int value_bytes, void* out, int device, int* regime,
+                         void* stream) {
   return run(x, active, png_src_local, png_valid, png_tile_part, piece_tiles,
-             n_pieces, nm, k, q, msg_tile, 1, 0, 0, ident_bits, out, device,
-             regime, stream);
+             n_pieces, nm, k, q, msg_tile, 1, 0, 0, ident_bits, value_bytes,
+             out, device, regime, stream);
 }
 
 // The lane form: one launch writes the bins of `lanes` inputs, lane b on
@@ -398,12 +438,13 @@ extern "C" int dc_gather_lanes(const void* x, const void* active,
                                const void* piece_tiles, long long n_pieces,
                                long long nm, int k, int q, int msg_tile,
                                int lanes, long long x_stride,
-                               long long out_stride, unsigned ident_bits,
+                               long long out_stride,
+                               unsigned long long ident_bits, int value_bytes,
                                void* out, int device, int* regime,
                                void* stream) {
   return run(x, active, png_src_local, png_valid, png_tile_part, piece_tiles,
              n_pieces, nm, k, q, msg_tile, lanes, x_stride, out_stride,
-             ident_bits, out, device, regime, stream);
+             ident_bits, value_bytes, out, device, regime, stream);
 }
 
 extern "C" const char* dc_gather_error_string(int code) {

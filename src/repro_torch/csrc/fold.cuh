@@ -1,9 +1,14 @@
 // Monoid folds shared by fused_dc.cu, segment_combine.cu and segment_fold.cu.
 //
 // A fold is one of {add, min, max} over one of {float, int, unsigned}, the
-// combinations the Pallas kernels of the reference lower.  Each fold into
-// memory is one atomic, so the same code serves shared and global memory;
-// combine() folds two values in registers.
+// combinations the Pallas kernels of the reference lower, or min over long
+// long: the packed (f32 key bits << 32) | payload words of the reference's
+// 8-byte min_with_payload, carried as int64 (every word of a key with its
+// sign bit clear lies below 2**63, so signed order is the reference's
+// uint64 order; identity LLONG_MAX; repro_torch/core/monoid.py).  Each fold
+// into memory is one atomic (a native 64-bit atomicMin for long long), so
+// the same code serves shared and global memory; combine() folds two values
+// in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,7 +18,7 @@
 #include <type_traits>
 
 enum { MONOID_ADD = 0, MONOID_MIN = 1, MONOID_MAX = 2 };
-enum { DTYPE_F32 = 0, DTYPE_I32 = 1, DTYPE_U32 = 2 };
+enum { DTYPE_F32 = 0, DTYPE_I32 = 1, DTYPE_U32 = 2, DTYPE_I64 = 3 };
 
 template <int M, typename T>
 struct Combo {
@@ -30,6 +35,8 @@ __device__ __forceinline__ T identity() {
                            : __uint_as_float(0xff800000u);   // -inf
   } else if constexpr (std::is_same_v<T, int>) {
     return M == MONOID_MIN ? INT_MAX : INT_MIN;
+  } else if constexpr (std::is_same_v<T, long long>) {
+    return M == MONOID_MIN ? LLONG_MAX : LLONG_MIN;
   } else {
     return M == MONOID_MIN ? 0xffffffffu : 0u;
   }
@@ -79,7 +86,8 @@ __device__ __forceinline__ T combine(T a, T b) {
   }
 }
 
-// Calls fn(Combo<M, T>{}) for the runtime (monoid, dtype) pair.
+// Calls fn(Combo<M, T>{}) for the runtime (monoid, dtype) pair; long long
+// with min only.
 template <typename Fn>
 cudaError_t dispatch_combo(int monoid, int dtype, Fn fn) {
 #define REPRO_DTYPES(M)                                    \
@@ -91,7 +99,9 @@ cudaError_t dispatch_combo(int monoid, int dtype, Fn fn) {
   }
   switch (monoid) {
     case MONOID_ADD: REPRO_DTYPES(MONOID_ADD)
-    case MONOID_MIN: REPRO_DTYPES(MONOID_MIN)
+    case MONOID_MIN:
+      if (dtype == DTYPE_I64) return fn(Combo<MONOID_MIN, long long>{});
+      REPRO_DTYPES(MONOID_MIN)
     case MONOID_MAX: REPRO_DTYPES(MONOID_MAX)
     default: return cudaErrorInvalidValue;
   }

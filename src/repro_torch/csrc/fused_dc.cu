@@ -43,9 +43,20 @@
 // Ring::bytes(9) = 56,896 B, 220,736 B in all; the weighted one (13 B an
 // edge) takes three stages of 1536 edges, Ring::bytes(13) = 61,120 B, 224,960
 // B in all; both under the 232,448 B a block may have.  So a block holds at
-// most kMaxChunk = 32,768 segments, and a partition wider than that is split
-// over several blocks, each walking all the partition's tiles and keeping the
-// edges that land in its slice.
+// most kMaxChunk<T> = 32,768 four-byte segments, and a partition wider than
+// that is split over several blocks, each walking all the partition's tiles
+// and keeping the edges that land in its slice.  Eight-byte accumulators
+// (the int64 min of min_with_payload) take 9 B a segment: 32,768 of them
+// would need 294,912 B, so kMaxChunk<long long> = 16,384 (147,456 B beside
+// either ring) and a q = 32,768 partition takes two blocks.
+//
+// The 8-byte min has two edge functions: none (BFS seeded from landmarks)
+// and EDGE_ADD_WEIGHT_TO_KEY (SSSP with parents), which reads the high word
+// of the packed (f32 key << 32) | payload value as a float, adds the edge's
+// weight with __fadd_rn (one rounding to nearest, as the reference's f32
+// add; never contracted) and packs the sum back over the same payload.  The
+// hub cache stays float add only: these folds are one native 64-bit
+// shared-memory atomicMin an edge.
 //
 // Where the copies' rules are not met (edge_tile not a multiple of 16, or an
 // edge array not 16-byte aligned: edge_stream_ok), the skeleton's plain-load
@@ -74,29 +85,48 @@ namespace {
 
 using partition_fold::Slice;
 
-constexpr int kMaxChunk = 32768;
-enum { EDGE_NONE = 0, EDGE_ADD_WEIGHT = 1 };
+// The widest slice of a partition a block holds, by accumulator width.
+template <typename T>
+constexpr int kMaxChunk = sizeof(T) == 8 ? 16384 : 32768;
+enum { EDGE_NONE = 0, EDGE_ADD_WEIGHT = 1, EDGE_ADD_WEIGHT_TO_KEY = 2 };
 
 // The weighted ring is smaller, so that it fits beside kMaxChunk segments.
 template <bool WEIGHT>
 using RingFor = std::conditional_t<WEIGHT, edge_stream::Ring<3, 1536>,
                                    edge_stream::Ring<3, 2048>>;
 
-static_assert(edge_stream::align16(5 * kMaxChunk) + RingFor<false>::bytes(9)
-                      <= partition_fold::kMaxSmem &&
-                  edge_stream::align16(5 * kMaxChunk) +
-                          RingFor<true>::bytes(13) <= partition_fold::kMaxSmem,
-              "accumulators, touched flags and the ring fit one block");
+template <typename T>
+constexpr bool fits() {
+  constexpr int slice = edge_stream::align16((sizeof(T) + 1) * kMaxChunk<T>);
+  return slice + RingFor<false>::bytes(9) <= partition_fold::kMaxSmem &&
+         slice + RingFor<true>::bytes(13) <= partition_fold::kMaxSmem;
+}
+static_assert(fits<float>() && fits<long long>() &&
+                  9 * 2 * kMaxChunk<long long> > partition_fold::kMaxSmem,
+              "accumulators, touched flags and the ring fit one block, and "
+              "twice kMaxChunk eight-byte segments would not");
 
 __device__ __forceinline__ long long clamp_index(long long s, long long len) {
   return s < 0 ? 0 : (s >= len ? len - 1 : s);
 }
 
+// The packed word v with w added to its f32 key (the high word), rounded
+// once to nearest, over the same payload.
+__device__ __forceinline__ long long add_weight_to_key(long long v, float w) {
+  const unsigned long long u = static_cast<unsigned long long>(v);
+  const float key = __uint_as_float(static_cast<unsigned>(u >> 32));
+  const unsigned long long hi = __float_as_uint(__fadd_rn(key, w));
+  return static_cast<long long>(hi << 32 | (u & 0xffffffffull));
+}
+
 // An edge gathers its source's value and validity from the table and folds
-// the value (plus its weight, with WEIGHT) into its destination if both the
-// edge and the source are valid (partition_fold.cuh, "Edge policies").
-template <int M, typename T, bool WEIGHT>
+// the value, through the edge function EF (EDGE_ADD_WEIGHT: plus its weight;
+// EDGE_ADD_WEIGHT_TO_KEY: its weight added to the packed key), into its
+// destination if both the edge and the source are valid (partition_fold.cuh,
+// "Edge policies").
+template <int M, typename T, int EF>
 struct FusedEdges {
+  static constexpr bool WEIGHT = EF != EDGE_NONE;
   using Value = T;
   using Ring = RingFor<WEIGHT>;
   static constexpr int kMonoid = M;
@@ -148,19 +178,21 @@ struct FusedEdges {
   __device__ int key(const Edge& ed) const { return ed.tv ? ed.key : -1; }
 
   __device__ T value(const Edge& ed) const {
-    if constexpr (WEIGHT) return ed.v + ed.w;
+    if constexpr (EF == EDGE_ADD_WEIGHT) return ed.v + ed.w;
+    else if constexpr (EF == EDGE_ADD_WEIGHT_TO_KEY)
+      return add_weight_to_key(ed.v, ed.w);
     else return ed.v;
   }
 };
 
-template <int M, typename T, bool WEIGHT>
+template <int M, typename T, int EF>
 cudaError_t launch(const void* table, const void* table_valid,
                    long long table_len, long long table_stride,
                    const void* src_local, const void* dst_local,
                    const void* valid, const void* w,
                    const partition_fold::Parts& parts, void* acc,
                    void* touched, cudaStream_t stream) {
-  FusedEdges<M, T, WEIGHT> e{{src_local, dst_local, valid, w},
+  FusedEdges<M, T, EF> e{{src_local, dst_local, valid, w},
                              {4, 4, 1, 4},
                              static_cast<const T*>(table),
                              static_cast<const uint8_t*>(table_valid),
@@ -178,7 +210,7 @@ int run(const void* table, const void* table_valid, long long table_len,
         const void* part_tile_off, int k, int q, int edge_tile, int chunk,
         long long num_segments, int lanes, long long out_stride, int monoid,
         int dtype, int edge_fn, void* acc, void* touched, void* stream) {
-  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 ||
       table_len <= 0 || num_segments < (long long)k * q || lanes < 1 ||
       lanes > partition_fold::kMaxLanes ||
       (lanes > 1 && (table_stride < table_len || out_stride < num_segments)))
@@ -193,18 +225,23 @@ int run(const void* table, const void* table_valid, long long table_len,
   return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
     using C = decltype(combo);
     using T = typename C::type;
-    if (edge_fn == EDGE_ADD_WEIGHT) {
-      if constexpr (std::is_same_v<T, float>)
-        return launch<C::monoid, T, true>(table, table_valid, table_len,
-                                          table_stride, src_local, dst_local,
-                                          valid, w, parts, acc, touched, s);
-      else
-        return cudaErrorInvalidValue;
+    if (chunk > kMaxChunk<T>) return cudaErrorInvalidValue;
+    auto go = [&](auto ef) -> cudaError_t {
+      return launch<C::monoid, T, decltype(ef)::value>(
+          table, table_valid, table_len, table_stride, src_local, dst_local,
+          valid, w, parts, acc, touched, s);
+    };
+    using None = std::integral_constant<int, EDGE_NONE>;
+    using AddWeight = std::integral_constant<int, EDGE_ADD_WEIGHT>;
+    using ToKey = std::integral_constant<int, EDGE_ADD_WEIGHT_TO_KEY>;
+    if (edge_fn == EDGE_NONE) return go(None{});
+    if constexpr (std::is_same_v<T, float>) {
+      if (edge_fn == EDGE_ADD_WEIGHT) return go(AddWeight{});
     }
-    if (edge_fn != EDGE_NONE) return cudaErrorInvalidValue;
-    return launch<C::monoid, T, false>(table, table_valid, table_len,
-                                       table_stride, src_local, dst_local,
-                                       valid, w, parts, acc, touched, s);
+    if constexpr (std::is_same_v<T, long long>) {
+      if (edge_fn == EDGE_ADD_WEIGHT_TO_KEY) return go(ToKey{});
+    }
+    return cudaErrorInvalidValue;
   });
 }
 
@@ -214,8 +251,10 @@ int run(const void* table, const void* table_valid, long long table_len,
 // table and table_valid hold table_len entries, src_local, dst_local, valid
 // (and w) one per edge of the tiles, tile_src_part one per tile,
 // part_tile_off k+1, acc and touched num_segments >= k*q.  w is read only
-// when edge_fn is EDGE_ADD_WEIGHT (float tables only).  chunk (at most
-// kMaxChunk) is the widest slice of a partition one block holds.  The tiles
+// when edge_fn is EDGE_ADD_WEIGHT (float tables only) or
+// EDGE_ADD_WEIGHT_TO_KEY (long long tables only); dtype DTYPE_I64 folds with
+// min only.  chunk (at most kMaxChunk<T>: 32,768, or 16,384 for long long)
+// is the widest slice of a partition one block holds.  The tiles
 // stream through the ring where the copies' rules allow (edge_stream_ok), and
 // are loaded directly otherwise.
 extern "C" int fused_dc(const void* table, const void* table_valid,

@@ -33,10 +33,14 @@
 //
 // Shared memory at q = 32,768: accumulators and touched flags take 163,840
 // B, the ring Ring::bytes(9) = 56,896 B; 220,736 B in all, under the 232,448
-// B a block may have.  So a block holds at most kMaxChunk = 32,768 segments,
-// and a partition wider than that is split over several blocks, each walking
-// all the partition's tiles and keeping the edges that land in its slice.  A
-// partition with no tiles is written as the identity, untouched.
+// B a block may have.  So a block holds at most kMaxChunk<T> = 32,768
+// four-byte segments, and a partition wider than that is split over several
+// blocks, each walking all the partition's tiles and keeping the edges that
+// land in its slice.  A partition with no tiles is written as the identity,
+// untouched.  The 8-byte min (the packed words of min_with_payload, as
+// int64) streams 13 B an edge, Ring::bytes(13) = 81,472 B, beside at most
+// kMaxChunk<long long> = 16,384 segments at 9 B (147,456 B): a q = 32,768
+// partition takes two blocks.
 //
 // Where the copies' rules are not met (edge_tile not a multiple of 16, or an
 // edge array not 16-byte aligned: edge_stream_ok), the skeleton's plain-load
@@ -68,11 +72,17 @@ namespace {
 
 using partition_fold::Slice;
 
-constexpr int kMaxChunk = 32768;
+// The widest slice of a partition a block holds, by accumulator width.
+template <typename T>
+constexpr int kMaxChunk = sizeof(T) == 8 ? 16384 : 32768;
 
-static_assert(edge_stream::align16(5 * kMaxChunk) +
-                      edge_stream::Ring<3, 2048>::bytes(9) <=
-                  partition_fold::kMaxSmem,
+template <typename T>
+constexpr int block_bytes() {
+  return edge_stream::align16((sizeof(T) + 1) * kMaxChunk<T>) +
+         edge_stream::Ring<3, 2048>::bytes(sizeof(T) + 5);
+}
+static_assert(block_bytes<float>() <= partition_fold::kMaxSmem &&
+                  block_bytes<long long>() <= partition_fold::kMaxSmem,
               "accumulators, touched flags and the ring fit one block");
 
 // An edge folds its value into its destination if it is valid; a tile whose
@@ -127,8 +137,8 @@ int run(const void* vals, const void* valid, const void* dst_local,
         int lanes, long long edge_stride, long long part_stride,
         long long out_stride, int monoid, int dtype, void* acc, void* touched,
         void* stream) {
-  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || chunk > kMaxChunk ||
-      lanes < 1 || lanes > partition_fold::kMaxLanes ||
+  if (k <= 0 || q <= 0 || edge_tile <= 0 || chunk <= 0 || lanes < 1 ||
+      lanes > partition_fold::kMaxLanes ||
       (lanes > 1 && (edge_stride < 0 || part_stride < k ||
                      out_stride < (long long)k * q)))
     return (int)cudaErrorInvalidValue;
@@ -142,6 +152,7 @@ int run(const void* vals, const void* valid, const void* dst_local,
   return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
     using C = decltype(combo);
     using T = typename C::type;
+    if (chunk > kMaxChunk<T>) return cudaErrorInvalidValue;
     const CombineEdges<C::monoid, T> e{
         {vals, dst_local, valid, nullptr},
         {(int)sizeof(T), 4, 1, 0},
@@ -157,7 +168,8 @@ int run(const void* vals, const void* valid, const void* dst_local,
 
 // Returns 0 or the cudaError_t of the launch.  Pointers are device pointers;
 // acc and touched hold k*q entries, part_tile_off k+1.  chunk (at most
-// kMaxChunk) is the widest slice of a partition one block holds.  The tiles
+// kMaxChunk<T>: 32,768, or 16,384 for long long) is the widest slice of a
+// partition one block holds; dtype DTYPE_I64 folds with min only.  The tiles
 // stream through the ring where the copies' rules allow (edge_stream_ok), and
 // are loaded directly otherwise.
 extern "C" int segment_combine(const void* vals, const void* valid,

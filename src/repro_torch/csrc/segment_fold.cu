@@ -8,18 +8,21 @@
 // the two is a limit of TPU VMEM, not of this card, so one kernel serves both.
 // Python side: repro_torch/kernels/fold_block.py (segment_fold_cuda).
 //
-// What bounds it on this card: bytes.  Each message is read once (9 bytes)
-// and each segment written once (5 bytes).  On the engine's SC streams
-// (about 332K messages into n_pad + 1 = 4.19M segments at RMAT scale 22) the
-// segments' 21 MB are most of it; on the tuner's sorted stream (67.3M
-// messages into 6,145 segments) the messages are.
+// What bounds it on this card: bytes.  Each message is read once (9 bytes;
+// 13 for the 8-byte min) and each segment written once (5 bytes; 9).  On
+// the engine's SC streams (about 332K messages into n_pad + 1 = 4.19M
+// segments at RMAT scale 22) the segments' 21 MB are most of it; on the
+// tuner's sorted stream (67.3M messages into 6,145 segments) the messages
+// are.
 //
 // Design: one launch per call, a cooperative grid (every block resident, so
 // that a grid barrier can order the identity fill before the folds), in one
 // of two regimes chosen here by num_segments:
 //
-//   * few segments (at most kSharedMaxSegments, whose acc and touched flags,
-//     5 B a segment, fit one block's shared memory): each block fills its
+//   * few segments (at most kSharedMaxSegments<T>, whose acc and touched
+//     flags, 5 B a segment (9 B for long long), fit kSharedBudget bytes of
+//     one block's shared memory: 40,960 segments, 22,752 for long long):
+//     each block fills its
 //     share of the global outputs with 16-byte stores, sets up a private
 //     acc and touched in shared memory, folds a contiguous slice of the
 //     stream into them, and after the grid barrier merges each segment it
@@ -47,7 +50,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;             // 32-message groups a lane loads at once
 constexpr int kStep = 32 * kUnroll;    // messages a warp takes per step
-constexpr long long kSharedMaxSegments = 40960;
 constexpr long long kMinBlockMessages = 8192;
 
 __host__ __device__ constexpr long long round16(long long b) {
@@ -59,6 +61,21 @@ template <typename T>
 __host__ __device__ constexpr long long shared_bytes(long long ns) {
   return round16(sizeof(T) * ns) + round16(ns);
 }
+
+// The few-segments regime's shared memory, and the most segments of T that
+// fit it (a multiple of 16): 40,960 four-byte and 22,752 eight-byte ones.
+constexpr long long kSharedBudget = 204800;
+template <typename T>
+constexpr long long kSharedMaxSegments =
+    kSharedBudget / (sizeof(T) + 1) / 16 * 16;
+static_assert(kSharedMaxSegments<float> == 40960 &&
+                  shared_bytes<float>(kSharedMaxSegments<float>) <=
+                      kSharedBudget &&
+                  shared_bytes<long long>(kSharedMaxSegments<long long>) <=
+                      kSharedBudget &&
+                  shared_bytes<long long>(kSharedMaxSegments<long long> +
+                                          16) > kSharedBudget,
+              "kSharedMaxSegments<T> is the widest slice the budget holds");
 
 // Folds v into acc[key] (and sets touched[key]) for the head of each run of
 // equal keys in adjacent lanes, with the run's values combined first.  Whole
@@ -127,17 +144,20 @@ __device__ __forceinline__ void fold_range(
 template <int M, typename T>
 __device__ __forceinline__ void fill(T* acc, uint8_t* touched, long long ns,
                                      long long tid, long long stride) {
+  constexpr long long kPer = 16 / sizeof(T);   // identities a store holds
   const T ident = identity<M, T>();
-  uint32_t bits;
-  memcpy(&bits, &ident, sizeof(bits));
-  const uint4 iv = make_uint4(bits, bits, bits, bits);
+  T row[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) row[j] = ident;
+  uint4 iv;
+  memcpy(&iv, row, sizeof(iv));
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const long long n4 = ns / 4, n16 = ns / 16;
+  const long long n4 = ns / kPer, n16 = ns / 16;
   uint4* a4 = reinterpret_cast<uint4*>(acc);
   uint4* t16 = reinterpret_cast<uint4*>(touched);
   for (long long i = tid; i < n4; i += stride) a4[i] = iv;
   for (long long i = tid; i < n16; i += stride) t16[i] = zero;
-  for (long long i = 4 * n4 + tid; i < ns; i += stride) acc[i] = ident;
+  for (long long i = kPer * n4 + tid; i < ns; i += stride) acc[i] = ident;
   for (long long i = 16 * n16 + tid; i < ns; i += stride) touched[i] = 0;
 }
 
@@ -244,7 +264,7 @@ extern "C" int segment_fold(const void* vals, const void* valid,
   return (int)dispatch_combo(monoid, dtype, [&](auto combo) -> cudaError_t {
     using C = decltype(combo);
     using T = typename C::type;
-    if (num_segments <= kSharedMaxSegments)
+    if (num_segments <= kSharedMaxSegments<T>)
       return launch<C::monoid, T, true>(vals, valid, ids, n, num_segments,
                                         acc, touched, device, s);
     return launch<C::monoid, T, false>(vals, valid, ids, n, num_segments, acc,

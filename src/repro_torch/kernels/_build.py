@@ -159,7 +159,7 @@ DC_GATHER = CudaKernel("dc_gather", "dc_gather.cu", (
     P, P, P, P, P,      # x, active, png_src_local, png_valid, png_tile_part
     P, I64,             # piece_tiles, n_pieces
     I64, I32, I32, I32,  # nm, k, q, msg_tile
-    ctypes.c_uint,      # ident_bits
+    ctypes.c_ulonglong, I32,  # ident_bits, value_bytes
     P, I32,             # out, device index
     ctypes.POINTER(ctypes.c_int), P),  # regime (set by the call), stream
     regimes=("l2", "staged"))
@@ -184,7 +184,7 @@ DC_GATHER_LANES = CudaKernel("dc_gather_lanes", "dc_gather.cu", (
     P, I64,             # piece_tiles, n_pieces
     I64, I32, I32, I32,  # nm, k, q, msg_tile
     I32, I64, I64,      # lanes, x_stride, out_stride
-    ctypes.c_uint,      # ident_bits
+    ctypes.c_ulonglong, I32,  # ident_bits, value_bytes
     P, I32,             # out, device index
     ctypes.POINTER(ctypes.c_int), P),  # regime (set by the call), stream
     regimes=("l2", "staged"), shares=DC_GATHER)
@@ -227,15 +227,24 @@ def reset_launch_counts() -> None:
 
 
 # ``or`` folds as ``max`` (its reference fold is ``segment_max`` over
-# uint32, whose identity 0 is also or's), so it takes max's code
-MONOID_CODES = {"add": 0, "min": 1, "max": 2, "or": 2}
-DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
+# uint32, whose identity 0 is also or's), so it takes max's code;
+# ``min_with_payload`` is an int64 min (repro_torch.core.monoid)
+MONOID_CODES = {"add": 0, "min": 1, "max": 2, "or": 2, "min_with_payload": 1}
+DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.uint32: 2,
+               torch.int64: 3}
+#: the 8-byte carrier folds with min only (the packed min_with_payload words)
+WIDE_MONOIDS = ("min", "min_with_payload")
 
 
-def dtype_code(dtype) -> int:
+def dtype_code(dtype, monoid: str) -> int:
+    """The kernels' code of ``dtype``; raises for a type they do not fold,
+    and for ``int64`` under any monoid but min."""
     if dtype not in DTYPE_CODES:
-        raise TypeError(f"the CUDA kernels fold float32, int32 and uint32, "
-                        f"not {dtype}")
+        raise TypeError(f"the CUDA kernels fold float32, int32, uint32 and "
+                        f"int64, not {dtype}")
+    if dtype == torch.int64 and monoid not in WIDE_MONOIDS:
+        raise TypeError(f"the CUDA kernels fold int64 with min only, not "
+                        f"{monoid!r}")
     return DTYPE_CODES[dtype]
 
 

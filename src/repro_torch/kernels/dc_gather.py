@@ -11,15 +11,17 @@ Two versions of one function, chosen by the device of the tensors:
   * :func:`ref_dc_gather`, the plain PyTorch version (CPU tensors; also the
     oracle that ``chip_smoke.py`` holds the kernel against on the card);
   * :func:`dc_gather_cuda`, the CUDA kernel ``csrc/dc_gather.cu`` (CUDA
-    tensors), which moves 4-byte words in one of two regimes that its C
+    tensors), which moves 4-byte words (8-byte ones for the ``int64``
+    packed words of ``min_with_payload``) in one of two regimes that its C
     entry chooses by shape: **staged**, where each block copies one source
     partition's rows of ``x`` and ``active`` into shared memory and streams
     that partition's slots against them (the TPU kernel's VMEM-resident
     BlockSpec), and **L2**, where every slot reads its source through L2.
     The staged regime needs the ``pieces`` of :func:`dc_pieces` (built once
-    per layout by :class:`repro_torch.kernels.ops.ScatterKernel`), ``q % 16
-    == 0`` and ``q <= 46,480`` (``kMaxStagedQ``); a call without pieces takes
-    the L2 regime.  ``_build.DC_GATHER.regimes`` counts the launches of each.
+    per layout by :class:`repro_torch.kernels.ops.ScatterKernel`), 4-byte
+    words, ``q % 16 == 0`` and ``q <= 46,480`` (``kMaxStagedQ``); a call
+    without pieces, or with 8-byte words, takes the L2 regime.
+    ``_build.DC_GATHER.regimes`` counts the launches of each.
 
 A slot whose source lies outside ``[0, k*q)`` gets the identity in both.
 
@@ -86,9 +88,12 @@ def dc_pieces(png_tile_part: np.ndarray, *, q: int, msg_tile: int,
 
 @functools.lru_cache(maxsize=None)
 def identity_bits(monoid: str, dtype: torch.dtype) -> int:
-    """The identity's 4-byte pattern as an unsigned int (built once per
-    monoid and dtype: the composed engine calls the kernel every DC step)."""
+    """The identity's bit pattern, 4 or 8 bytes as ``dtype``, as an unsigned
+    int (built once per monoid and dtype: the composed engine calls the
+    kernel every DC step)."""
     ident = M.full((1,), M.identity_value(monoid, dtype), dtype, "cpu")
+    if dtype.itemsize == 8:
+        return int(ident.view(torch.int64)) & 0xFFFFFFFFFFFFFFFF
     return int(ident.view(torch.int32)) & 0xFFFFFFFF
 
 
@@ -126,7 +131,7 @@ def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
         raise ValueError(f"x must be [k, q] or [B, k, q] with B >= 1, got "
                          f"{tuple(x.shape)}")
     _build.check_cuda(x, "x", shape=lead + (k, q))
-    _build.dtype_code(x.dtype)
+    _build.dtype_code(x.dtype, monoid)
     _build.check_cuda(active, "active", torch.bool, lead + (k, q), dev)
     _build.check_cuda(png_src_local, "png_src_local", torch.int32, (nm,), dev)
     _build.check_cuda(png_valid, "png_valid", torch.bool, (nm,), dev)
@@ -147,7 +152,8 @@ def dc_gather_cuda(x, active, png_src_local, png_valid, png_tile_part, *,
                 png_valid.data_ptr(), png_tile_part.data_ptr(),
                 pieces.data_ptr() if n_pieces else None, n_pieces, nm, k, q,
                 msg_tile)
-        rest = (identity_bits(monoid, x.dtype), out.data_ptr(), dev.index,
+        rest = (identity_bits(monoid, x.dtype), x.dtype.itemsize,
+                out.data_ptr(), dev.index,
                 ctypes.byref(regime), _build.stream_handle(dev.index))
         kern = _build.DC_GATHER_LANES if lead else _build.DC_GATHER
         lanes = (lead[0], k * q, nm) if lead else ()
@@ -165,7 +171,7 @@ def dc_gather(x, active, png_src_local, png_valid, png_tile_part, *,
 
     Args:
       x:             [k, q] per-vertex scatter values (float32, int32 or
-                     uint32), or [B, k, q]: B lanes of bins.
+                     uint32; int64 with min), or [B, k, q]: B lanes of bins.
       active:        x's shape, bool per-vertex activity.
       png_src_local: [NM] int32 source id within its partition.
       png_valid:     [NM] bool slot validity (False on pads).

@@ -11,9 +11,10 @@ Two versions of one function, chosen by the device of the tensors:
   * :func:`segment_fold_cuda`, the CUDA kernel ``csrc/segment_fold.cu``
     (CUDA tensors): one launch of a cooperative grid that fills the outputs
     and then folds, with each warp first combining runs of equal ids.  Up to
-    40,960 segments (``kSharedMaxSegments`` there) each block folds its
-    slice of the stream in shared memory and merges the segments it touched
-    with one global atomic each; past that it folds with global atomics.
+    40,960 segments (``kSharedMaxSegments<T>`` there; 22,752 for ``int64``)
+    each block folds its slice of the stream in shared memory and merges
+    the segments it touched with one global atomic each; past that it folds
+    with global atomics.
 
 The TPU kernel's 4096-segment cap is a limit of VMEM, so on this port the
 same kernel folds any segment count and ``fold_tile`` is unused; the layout
@@ -58,7 +59,8 @@ def segment_fold(vals, valid, ids, num_segments: int, monoid: str = "add"):
         with warnings.catch_warnings():   # "index_reduce() is in beta"
             warnings.simplefilter("ignore", UserWarning)
             acc.index_reduce_(0, ids, wide,
-                              "amin" if monoid == "min" else "amax",
+                              "amin" if M.FOLD[monoid] == "min"
+                              else "amax",
                               include_self=True)
     touched = torch.zeros(ns + 1, dtype=torch.bool, device=vals.device)
     touched.index_fill_(0, ids, True)
@@ -100,7 +102,7 @@ def segment_fold_cuda(vals, valid, ids, num_segments: int,
     touched = torch.empty(ns, dtype=torch.bool, device=dev)
     _build.SEGMENT_FOLD.launch(
         vals.data_ptr(), valid.data_ptr(), ids.data_ptr(), n, ns,
-        _build.MONOID_CODES[monoid], _build.dtype_code(vals.dtype),
+        _build.MONOID_CODES[monoid], _build.dtype_code(vals.dtype, monoid),
         acc.data_ptr(), touched.data_ptr(), dev.index,
         _build.stream_handle(dev.index))
     return acc, touched
@@ -112,7 +114,8 @@ def blocked_segment_fold(vals, valid, ids, num_segments: int, *,
     kernel for CUDA tensors.
 
     Args:
-      vals:  [N] message value per slot (float32, int32 or uint32).
+      vals:  [N] message value per slot (float32, int32 or uint32; int64
+             with min: the packed words of ``min_with_payload``).
       valid: [N] bool validity; invalid slots contribute nothing.
       ids:   [N] int32 segment id per slot; ids outside
              ``[0, num_segments)`` contribute nothing.

@@ -30,8 +30,9 @@ Two versions, chosen by the device of the tensors:
     plain version.  Lanes take the kernel's lane form (``fused_dc_lanes``):
     one launch, lane ``b`` on ``blockIdx.y``.
 
-The CUDA kernel knows one edge function, :func:`add_weight`; any other
-``apply_weight`` raises on CUDA tensors.
+The CUDA kernel knows two edge functions, :func:`add_weight` (float32
+tables) and :func:`add_weight_to_key` (the ``int64`` packed words of
+``min_with_payload``); any other ``apply_weight`` raises on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -48,9 +49,16 @@ ENV_FUSED = "REPRO_FUSED"
 
 #: widest partition slice one thread block keeps in shared memory: 32768
 #: four-byte accumulators and touched bytes (160 KB) beside the ring of edge
-#: stages, under the 227 KB limit (``kMaxChunk`` in csrc/fused_dc.cu and
-#: csrc/segment_combine.cu)
+#: stages, under the 227 KB limit (``kMaxChunk<T>`` in csrc/fused_dc.cu and
+#: csrc/segment_combine.cu); 16384 eight-byte ones (144 KB)
 MAX_CHUNK = 32768
+WIDE_MAX_CHUNK = 16384
+
+
+def max_chunk(dtype: torch.dtype) -> int:
+    """The widest partition slice a block of the tile kernels holds for
+    accumulators of ``dtype``."""
+    return WIDE_MAX_CHUNK if dtype.itemsize == 8 else MAX_CHUNK
 
 
 def fused_enabled() -> bool:
@@ -65,8 +73,18 @@ def add_weight(vals, w):
     return vals + w
 
 
-#: the edge functions the CUDA kernel knows, by their code in fused_dc.cu
-_EDGE_FNS = {None: 0, add_weight: 1}
+def add_weight_to_key(vals, w):
+    """SSSP-with-parents' edge function on packed ``min_with_payload``
+    words: ``w`` added to the f32 key (one f32 add, as the reference's
+    ``pack(key + w, payload)``), the payload kept."""
+    key, payload = M.unpack_key_payload(vals)
+    return M.pack_key_payload(key + w, payload)
+
+
+#: the edge functions the CUDA kernel knows, by their code in fused_dc.cu,
+#: and the table type each takes
+_EDGE_FNS = {None: 0, add_weight: 1, add_weight_to_key: 2}
+_EDGE_DTYPES = {add_weight: torch.float32, add_weight_to_key: torch.int64}
 
 
 class EdgeTiles(NamedTuple):
@@ -143,10 +161,14 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
                          f"edge_tile={et} num_segments={ns}")
     if apply_weight not in _EDGE_FNS:
         raise ValueError("the CUDA fused DC kernel applies no edge function "
-                         "but repro_torch.kernels.fused_step.add_weight")
+                         "but repro_torch.kernels.fused_step.add_weight and "
+                         "add_weight_to_key")
+    codes = (_build.MONOID_CODES[monoid],
+             _build.dtype_code(table.dtype, monoid), _EDGE_FNS[apply_weight])
     if apply_weight is not None:
-        if table.dtype != torch.float32:
-            raise TypeError("add_weight needs a float32 table")
+        want = _EDGE_DTYPES[apply_weight]
+        if table.dtype != want:
+            raise TypeError(f"{apply_weight.__name__} needs a {want} table")
         _build.check_cuda(w, "w", torch.float32, (ne,), dev)
     acc = torch.empty(shape[:-1] + (ns,), dtype=table.dtype, device=dev)
     touched = torch.empty(shape[:-1] + (ns,), dtype=torch.bool, device=dev)
@@ -154,9 +176,7 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
              edge_valid.data_ptr(),
              w.data_ptr() if apply_weight is not None else None,
              tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(),
-             k, q, et, min(q, MAX_CHUNK), ns)
-    codes = (_build.MONOID_CODES[monoid], _build.dtype_code(table.dtype),
-             _EDGE_FNS[apply_weight])
+             k, q, et, min(q, max_chunk(table.dtype)), ns)
     outs = (acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
     if lanes is None:
         _build.FUSED_DC.launch(table.data_ptr(), table_valid.data_ptr(), m,
@@ -196,7 +216,7 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
         raise ValueError(f"unknown monoid {monoid!r}")
     kind = table.device.type
     if kind == "cpu":
-        mono = M.REGISTRY[monoid](table.dtype)
+        mono = M.make(monoid, table.dtype)
         return ref_fused_scatter_fold(mono, table, table_valid, idx,
                                       edge_valid, dst, num_segments,
                                       apply_weight=apply_weight, w=w)

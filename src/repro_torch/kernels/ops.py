@@ -158,7 +158,7 @@ class FusedDCKernel(_TileGeometry):
         w = self.edge_w if aw is not None else None
         if self.plain:
             return ref_fused_scatter_fold(
-                M.REGISTRY[self.monoid](self.dtype), table, table_valid,
+                M.make(self.monoid, self.dtype), table, table_valid,
                 self.edge_src, self.edge_valid, self.edge_dst,
                 self.n_pad + 1, apply_weight=aw, w=w)
         return fused_scatter_fold(

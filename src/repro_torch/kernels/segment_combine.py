@@ -41,7 +41,7 @@ import torch
 
 from . import _build
 from .fold_block import lane_segment_fold, segment_fold
-from .fused_step import MAX_CHUNK
+from .fused_step import max_chunk
 
 
 def live_tiles(tile_dst_part, tile_first, k: int):
@@ -111,8 +111,9 @@ def segment_combine_cuda(edge_vals, edge_valid, edge_dst_local, tile_src_part,
     args = (edge_vals.data_ptr(), edge_valid.data_ptr(),
             edge_dst_local.data_ptr(), tile_src_part.data_ptr(),
             part_tile_off.data_ptr(), part_active.data_ptr(), k, q, edge_tile,
-            min(q, MAX_CHUNK))
-    codes = (_build.MONOID_CODES[monoid], _build.dtype_code(edge_vals.dtype))
+            min(q, max_chunk(edge_vals.dtype)))
+    codes = (_build.MONOID_CODES[monoid],
+             _build.dtype_code(edge_vals.dtype, monoid))
     outs = (acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
     if not lead:
         _build.SEGMENT_COMBINE.launch(*args, *codes, *outs)
@@ -129,8 +130,8 @@ def segment_combine(edge_vals, edge_valid, edge_dst_local, tile_dst_part,
 
     Args:
       edge_vals:      [NE] message value per edge, gather order (float32,
-                      int32 or uint32), or [B, NE]: B lanes over the same
-                      tiles.
+                      int32 or uint32; int64 with min), or [B, NE]: B
+                      lanes over the same tiles.
       edge_valid:     edge_vals' shape, bool validity (False on pads and
                       inactive-source slots).
       edge_dst_local: [NE] int32 destination id within its partition.

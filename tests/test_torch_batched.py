@@ -319,7 +319,7 @@ def test_or_monoid_matches_reference():
                                 to_torch(ids, "cpu"), 40, "or")
     _same(acc.numpy(), ref.segment_fold(jnp.asarray(a), jnp.asarray(ids), 40))
     assert touched.numpy().tolist() == [i in set(ids) for i in range(40)]
-    assert set(M.REGISTRY) == set(RM.REGISTRY) - {"min_with_payload"}
+    assert set(M.REGISTRY) == set(RM.REGISTRY)
 
 
 def test_interop_carries_lane_state(layouts):

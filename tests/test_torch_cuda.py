@@ -20,7 +20,8 @@ from repro_torch.kernels.dc_gather import (dc_gather_cuda, dc_pieces,
                                            ref_dc_gather)
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
-                                            fused_dc_cuda, global_edges,
+                                            add_weight_to_key, fused_dc_cuda,
+                                            global_edges,
                                             ref_fused_scatter_fold)
 from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                      ScatterKernel, SpmvKernel)
@@ -871,3 +872,266 @@ def test_local_apps_on_the_card_match_the_cpu(dev):
         np.testing.assert_allclose(app(L, src)[key],
                                    app(L, src, device="cpu")[key], rtol=0,
                                    atol=1e-6)
+
+
+# ---- the 8-byte min: the packed words of min_with_payload, as int64 ----
+
+def _packed(rng, n, device):
+    """Packed ``(f32 key << 32) | payload`` words: random non-negative f32
+    keys (not only integer-valued), a tenth +inf, any uint32 payload."""
+    keys = rng.random(n, dtype=np.float32) * np.float32(1000)
+    keys[rng.random(n) < 0.1] = np.inf
+    payload = rng.integers(0, 2**32, n, dtype=np.int64)
+    words = (keys.view(np.int32).astype(np.int64) << 32) | payload
+    return torch.from_numpy(words).to(device)
+
+
+@pytest.fixture(scope="module")
+def wide_layouts(layouts):
+    """``q32k``: k = 4 partitions of q = 32,768, the main path's q, which
+    the 8-byte tile kernels split into two slices of 16,384."""
+    return {**layouts,
+            "q32k": build_layout(rmat(17, 2, seed=6, weighted=True), k=4,
+                                 edge_tile=64, msg_tile=32)}
+
+
+# both regimes of the 8-byte fold (shared memory up to 22,752 segments,
+# kSharedMaxSegments<long long>, global atomics past it), the boundary on
+# both sides, and a tiny count
+@pytest.mark.parametrize("ns", [7, 4096, 22752, 22753, 300_001])
+@pytest.mark.parametrize("monoid", ["min", "min_with_payload"])
+def test_wide_segment_fold_matches_plain(dev, monoid, ns):
+    rng = np.random.default_rng(60)
+    n = 200_000
+    vals = _packed(rng, n, dev)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    ids = torch.from_numpy(
+        rng.integers(-8, ns + 8, n).astype(np.int32)).to(dev)
+    before = _build.SEGMENT_FOLD.launches
+    got = segment_fold_cuda(vals, valid, ids, ns, monoid)
+    torch.cuda.synchronize()
+    assert _build.SEGMENT_FOLD.launches == before + 1
+    _assert_bit_exact(got, segment_fold(vals, valid, ids, ns, monoid))
+    sorted_ids = torch.sort(ids.clamp(0, ns - 1)).values
+    _assert_bit_exact(segment_fold_cuda(vals, valid, sorted_ids, ns, monoid),
+                      segment_fold(vals, valid, sorted_ids, ns, monoid))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "sparse", "et24",
+                                    "q32k"])
+def test_wide_fused_dc_matches_plain(dev, wide_layouts, layout, aligned):
+    """The 8-byte min with no edge function and with
+    ``add_weight_to_key`` on both paths of the kernel (the ring; plain
+    loads on ``et24`` or arrays off a 16-byte boundary), single lane and B
+    = 3 and 16, with dead tiles; ``q32k`` and ``wide`` split each partition
+    into slices of 16,384."""
+    L = wide_layouts[layout]
+    rng = np.random.default_rng(61)
+    kern = FusedDCKernel(L, "min", torch.int64, dev)
+    tsp = _dead_tiles(rng, L, dev)
+    w = torch.from_numpy(rng.random(L.num_edges, dtype=np.float32)
+                         * np.float32(10)).to(dev)
+    arrays = (kern.edge_src_local, kern.edge_dst_local, kern.edge_valid, w)
+    if not aligned:
+        arrays = tuple(_unaligned(a) for a in arrays)
+    src_local, dst_local, edge_valid, w = arrays
+    tiles = EdgeTiles(src_local, dst_local, tsp, kern.part_tile_off, L.q,
+                      L.edge_tile)
+    idx, dst = global_edges(tsp, kern.tile_dst_part, src_local, dst_local,
+                            edge_valid, q=L.q, edge_tile=L.edge_tile,
+                            n_pad=L.n_pad)
+    ns = L.n_pad + 1
+    mono = M.min_with_payload()
+    for lanes in (None, 3, 16):
+        shape = (ns,) if lanes is None else (lanes, ns)
+        for fn in (None, add_weight_to_key):
+            table = _packed(rng, int(np.prod(shape)), dev).view(shape)
+            tvalid = torch.from_numpy(rng.random(shape) < 0.6).to(dev)
+            wt = w if fn is not None else None
+            kk = _build.FUSED_DC if lanes is None else _build.FUSED_DC_LANES
+            before = kk.launches
+            got = fused_dc_cuda(table, tvalid, edge_valid, ns,
+                                "min_with_payload", tiles, apply_weight=fn,
+                                w=wt)
+            torch.cuda.synchronize()
+            assert kk.launches == before + 1
+            _assert_bit_exact(got, ref_fused_scatter_fold(
+                mono, table, tvalid, idx, edge_valid, dst, ns,
+                apply_weight=fn, w=wt))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "half", "sparse", "et24",
+                                    "q32k"])
+def test_wide_segment_combine_matches_plain(dev, wide_layouts, layout,
+                                            aligned):
+    """The 8-byte min on both paths, single lane and B = 3 and 16 (each
+    lane with its own inactive source partitions), with dead tiles."""
+    L = wide_layouts[layout]
+    rng = np.random.default_rng(62)
+    kern = GatherKernel(L, "min", torch.int64, dev)
+    tsp = _dead_tiles(rng, L, dev)
+    geo = dict(k=L.k, q=L.q, edge_tile=L.edge_tile)
+    dst_local = kern.edge_dst_local
+    view = (lambda a: a) if aligned else _lanes_unaligned
+    for lanes in (None, 3, 16):
+        lead = () if lanes is None else (lanes,)
+        n = int(np.prod(lead + (L.num_edges,)))
+        vals = view(_packed(rng, n, dev).view(lead + (L.num_edges,)))
+        valid = view(torch.from_numpy(
+            rng.random(lead + (L.num_edges,)) < 0.8).to(dev))
+        part_active = torch.from_numpy(rng.random(lead + (L.k,)) < 0.6).to(dev)
+        kk = (_build.SEGMENT_COMBINE if lanes is None
+              else _build.SEGMENT_COMBINE_LANES)
+        before = kk.launches
+        got = segment_combine_cuda(
+            vals, valid, dst_local if aligned else _unaligned(dst_local),
+            tsp, kern.part_tile_off, part_active, monoid="min_with_payload",
+            **geo)
+        torch.cuda.synchronize()
+        assert kk.launches == before + 1
+        _assert_bit_exact(got, ref_segment_combine(
+            vals, valid, dst_local, kern.tile_dst_part, tsp, kern.tile_first,
+            part_active, monoid="min_with_payload", **geo))
+
+
+@pytest.mark.parametrize("lanes", [None, 3, 16])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "q32k"])
+def test_wide_dc_gather_takes_the_l2_regime(dev, wide_layouts, layout,
+                                            lanes):
+    """8-byte words: the L2 regime even where the pieces would stage 4-byte
+    ones, bit-exact, the identity INT64_MAX on inactive slots."""
+    L = wide_layouts[layout]
+    rng = np.random.default_rng(63)
+    kern = ScatterKernel(L, "min_with_payload", torch.int64, dev)
+    slots = (kern.png_src_local, kern.png_valid, kern.png_tile_part)
+    geo = dict(k=L.k, q=L.q, msg_tile=L.msg_tile, monoid="min_with_payload")
+    lead = () if lanes is None else (lanes,)
+    x = _packed(rng, int(np.prod(lead + (L.n_pad,))), dev).view(
+        lead + (L.k, L.q))
+    active = torch.from_numpy(rng.random(lead + (L.n_pad,)) < 0.5).to(
+        dev).view(lead + (L.k, L.q))
+    kk = _build.DC_GATHER if lanes is None else _build.DC_GATHER_LANES
+    before = dict(kk.regimes)
+    got = dc_gather_cuda(x, active, *slots, **geo, pieces=kern.pieces)
+    torch.cuda.synchronize()
+    assert {r: kk.regimes[r] - before[r] for r in before} == \
+        {"l2": 1, "staged": 0}
+    want = ref_dc_gather(x, active, *slots, **geo)
+    _assert_bit_exact((got,), (want,))
+    assert bool((got == 2**63 - 1).any())
+
+
+def test_wide_forms_refuse_other_monoids_and_edge_functions(dev, layouts):
+    """An int64 call of any monoid but min, and an edge function the kernel
+    does not know or whose table type is not its own, raise before a
+    launch."""
+    L = layouts["rmat"]
+    rng = np.random.default_rng(64)
+    ns = L.n_pad + 1
+    fk = FusedDCKernel(L, "min", torch.int64, dev)
+    table = _packed(rng, ns, dev)
+    valid = torch.ones(ns, dtype=torch.bool, device=dev)
+    w = torch.ones(L.num_edges, device=dev)
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    for monoid in ("add", "max", "or"):
+        with pytest.raises(TypeError, match="min only"):
+            fused_dc_cuda(table, valid, fk.edge_valid, ns, monoid, fk.tiles)
+        with pytest.raises(TypeError, match="min only"):
+            segment_fold_cuda(table, valid,
+                              torch.zeros(ns, dtype=torch.int32, device=dev),
+                              4, monoid)
+    with pytest.raises(ValueError, match="edge function"):
+        fused_dc_cuda(table, valid, fk.edge_valid, ns, "min", fk.tiles,
+                      apply_weight=lambda v, x: v, w=w)
+    with pytest.raises(TypeError, match="int64"):
+        fused_dc_cuda(table.view(torch.float32)[:ns].contiguous(), valid,
+                      fk.edge_valid, ns, "min", fk.tiles,
+                      apply_weight=add_weight_to_key, w=w)
+    with pytest.raises(TypeError, match="float32"):
+        fused_dc_cuda(table, valid, fk.edge_valid, ns, "min", fk.tiles,
+                      apply_weight=add_weight, w=w)
+    assert counts == {k.name: k.launches for k in _build.KERNELS}
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_payload_apps_on_the_card_match_the_cpu(dev, monkeypatch, fused):
+    """``sssp_with_parents`` (hybrid: the DC kernels and the SC fold),
+    ``sssp_parents_multi`` and ``bfs_seeded_multi`` (16 lanes) on the card,
+    on both DC lowerings, bit-exact with the CPU; each batched step is one
+    launch of each int64 lane form of its lowering."""
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    g = rmat(10, 8, seed=5, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    src = int(np.argmax(g.out_degrees()))
+    _build.reset_launch_counts()
+    got = rt.sssp_with_parents(L, src)
+    dc_kernels = (("fused_dc",) if fused == "1"
+                  else ("dc_gather", "segment_combine"))
+    launched = {k.name: k.launches for k in _build.KERNELS}
+    assert all(launched[name] > 0 for name in dc_kernels + ("segment_fold",))
+    cpu = rt.sssp_with_parents(L, src, device="cpu")
+    for key in ("dist", "parent"):
+        assert np.array_equal(got[key], cpu[key]), key
+    assert np.array_equal(got["dist"], rt.sssp(L, src)["dist"])
+    sources = np.linspace(0, L.n - 1, 16).astype(np.int64)
+    lane_kernels = ((_build.FUSED_DC_LANES,) if fused == "1" else
+                    (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES))
+    for app, keys in ((rt.sssp_parents_multi, ("dist", "parent")),
+                      (rt.bfs_seeded_multi, ("level", "parent"))):
+        _build.reset_launch_counts()
+        res = app(L, sources)
+        steps = len(res["stats"])
+        assert {k.name: k.launches for k in _build.KERNELS} == \
+            {k.name: steps if k in lane_kernels else 0
+             for k in _build.KERNELS}
+        if fused == "0":
+            assert _build.DC_GATHER_LANES.regimes["l2"] == steps
+        cpu = app(L, sources, device="cpu")
+        for key in keys:
+            assert np.array_equal(res[key], cpu[key]), key
+    cold = rt.bfs_multi(L, sources)
+    for key in ("level", "parent"):
+        assert np.array_equal(res[key], cold[key]), key
+
+
+def test_server_on_the_card_matches_the_cpu(dev):
+    """The graph query server on the card and on the CPU over the same
+    query stream: equal answers (PageRank within 1e-6) and counters."""
+    from repro_torch.serve import GraphQuery, GraphQueryServer
+    g = symmetrize(rmat(10, 8, seed=5, weighted=True))
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    rng = np.random.default_rng(65)
+    pool = rng.choice(L.n, 6, replace=False)
+    servers = {"cuda": GraphQueryServer(L),
+               "cpu": GraphQueryServer(L, device="cpu")}
+    done = {name: {} for name in servers}
+    qid = 0
+    for _ in range(3):
+        batch = []
+        for app, count in (("bfs", 4), ("sssp", 4), ("sssp_parents", 2)):
+            for s in rng.choice(pool, count):
+                batch.append((qid, app, {"source": int(s)}))
+                qid += 1
+        for name, srv in servers.items():
+            for i, app, params in batch:
+                srv.submit(GraphQuery(i, app, dict(params)))
+            done[name].update({q.qid: q.result for q in srv.run()})
+    for name, srv in servers.items():
+        srv.submit(GraphQuery(qid, "cc", {}))
+        srv.submit(GraphQuery(qid + 1, "pagerank", {"iters": 5}))
+        done[name].update({q.qid: q.result for q in srv.run()})
+    counters = {name: (s.cache_hits, s.cache_misses, s.semantic_hits,
+                       s.semantic_misses) for name, s in servers.items()}
+    assert counters["cuda"] == counters["cpu"]
+    assert servers["cuda"].semantic_hits > 0
+    for i, want in done["cpu"].items():
+        for key, value in want.items():
+            if key == "stats":
+                continue
+            if key == "pr":
+                np.testing.assert_allclose(done["cuda"][i][key], value,
+                                           rtol=0, atol=1e-6)
+            else:
+                assert np.array_equal(done["cuda"][i][key], value), (i, key)

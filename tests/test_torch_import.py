@@ -85,3 +85,38 @@ def test_cpu_run_matches_scipy_levels():
     d = csg.shortest_path(to_scipy(g), unweighted=True, indices=0)
     want = np.where(np.isinf(d), -1, d).astype(np.int32)
     assert np.array_equal(res["level"], want)
+
+
+def test_serving_tier_imports_without_jax():
+    """``repro_torch.serve`` (and the obs copies it records into) load
+    neither JAX nor the reference, and expose the server."""
+    code = ("import sys\n"
+            "from repro_torch.serve import GraphQueryServer, ServeConfig\n"
+            "from repro_torch.serve import cache\n"
+            "from repro_torch import obs\n"
+            "assert ServeConfig().mode == 'hybrid'\n"
+            "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'repro.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("entry", ["sssp_with_parents", "sssp_parents_multi",
+                                   "bfs_seeded_multi", "server"])
+def test_payload_entries_raise_without_a_card(entry, monkeypatch):
+    from repro_torch.serve import GraphQueryServer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    L = build_layout(rmat(6, 4, seed=0, weighted=True), k=4, edge_tile=16,
+                     msg_tile=8)
+    calls = {
+        "sssp_with_parents": lambda: repro_torch.sssp_with_parents(L, 0),
+        "sssp_parents_multi": lambda: repro_torch.sssp_parents_multi(L, [0]),
+        "bfs_seeded_multi": lambda: repro_torch.bfs_seeded_multi(L, [0]),
+        "server": lambda: GraphQueryServer(L),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()

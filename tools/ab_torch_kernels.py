@@ -14,7 +14,8 @@ interface its own source declares, which must be one this tool knows: this
 tree's; for ``fused_dc``, the edge-range form it had before it read the tile
 form (the global ``idx`` and ``dst`` and the partitions' edge offsets, built
 here once on the card from the layout); for ``dc_gather``, the slot form it
-had before its staged regime (no pieces).  Any other interface is refused.  To time a
+had before its staged regime (no pieces), and its staged form before 8-byte
+words (no word width).  Any other interface is refused.  To time a
 variant of a kernel, build it in another checkout and pass that.  The
 inputs are ``chip_smoke.py``'s: Graph500 RMAT at ``--scale`` from
 ``--seed`` with its k=128, edge_tile=256 layout.
@@ -76,6 +77,11 @@ FUSED_EDGE_RANGE = ("table", "table_valid", "table_len", "idx", "edge_valid",
 # dc_gather's C entry before the staged regime (one thread per slot)
 GATHER_SLOTS = ("x", "active", "png_src_local", "png_valid", "png_tile_part",
                 "nm", "k", "q", "msg_tile", "ident_bits", "out", "stream")
+# dc_gather's C entry with the staged regime, before 8-byte words
+GATHER_FOUR_BYTE = ("x", "active", "png_src_local", "png_valid",
+                    "png_tile_part", "piece_tiles", "n_pieces", "nm", "k",
+                    "q", "msg_tile", "ident_bits", "out", "device", "regime",
+                    "stream")
 
 
 def c_params(source: Path, name: str) -> tuple:
@@ -93,8 +99,9 @@ def baseline_kernel(kern, base_csrc: Path):
     """``(kernel, interface)``: ``kern``'s C entry built from the baseline's
     source, bound with the argument types of the interface that source
     declares: ``"this"`` (this tree's), ``"edge_range"`` (``fused_dc``
-    before the tile form) or ``"slots"`` (``dc_gather`` before its staged
-    regime).  Refuses any other."""
+    before the tile form), ``"slots"`` (``dc_gather`` before its staged
+    regime) or ``"four_byte"`` (``dc_gather`` staged, before 8-byte words).
+    Refuses any other."""
     from repro_torch.kernels import _build
     src = base_csrc / kern.source.name
     params = c_params(src, kern.name)
@@ -109,6 +116,11 @@ def baseline_kernel(kern, base_csrc: Path):
         P, I64, I32 = _build.P, _build.I64, _build.I32
         return _build.CudaKernel(kern.name, str(src), (
             P, P, P, P, P, I64, I32, I32, I32, ctypes.c_uint, P, P)), "slots"
+    if kern.name == "dc_gather" and params == GATHER_FOUR_BYTE:
+        P, I64, I32 = _build.P, _build.I64, _build.I32
+        return _build.CudaKernel(kern.name, str(src), (
+            P, P, P, P, P, P, I64, I64, I32, I32, I32, ctypes.c_uint, P, I32,
+            ctypes.POINTER(ctypes.c_int), P)), "four_byte"
     raise SystemExit(f"ab_torch_kernels: the baseline's {kern.name} takes "
                      f"({', '.join(params)}), an interface this tool does not "
                      "know")
@@ -283,7 +295,8 @@ def main() -> int:
                 view(gk.edge_dst_local).data_ptr(),
                 gk.tile_src_part.data_ptr(), gk.part_tile_off.data_ptr(),
                 all_parts.data_ptr(), k, q, et, min(q, MAX_CHUNK),
-                _build.MONOID_CODES[monoid], _build.dtype_code(vals.dtype),
+                _build.MONOID_CODES[monoid],
+                _build.dtype_code(vals.dtype, monoid),
                 acc.data_ptr(), touched.data_ptr(), stream()), (acc, touched)
 
     def run_c(kern, args_out):
@@ -338,7 +351,7 @@ def main() -> int:
                 edge_valid.data_ptr(), dst.data_ptr(),
                 w.data_ptr() if fn else None, part_off.data_ptr(), k, q,
                 min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
-                _build.dtype_code(table.dtype), int(fn is not None),
+                _build.dtype_code(table.dtype, monoid), int(fn is not None),
                 acc.data_ptr(), touched.data_ptr(), stream())
         return args, (acc, touched)
 
@@ -352,7 +365,7 @@ def main() -> int:
                 ev.data_ptr(), wt.data_ptr() if fn else None,
                 tl.tile_src_part.data_ptr(), tl.part_tile_off.data_ptr(), k,
                 q, et, min(q, MAX_CHUNK), ns, _build.MONOID_CODES[monoid],
-                _build.dtype_code(table.dtype), int(fn is not None),
+                _build.dtype_code(table.dtype, monoid), int(fn is not None),
                 acc.data_ptr(), touched.data_ptr(), stream())
         return args, (acc, touched)
 
@@ -401,9 +414,10 @@ def main() -> int:
         if iface["gather"] == "slots":
             args = (*ptrs, nm, k, q, mt, ident, out.data_ptr(), stream())
         else:
+            width = () if iface["gather"] == "four_byte" else (4,)
             args = (*ptrs, pieces.data_ptr() if pieces is not None else None,
                     pieces.numel() - 1 if pieces is not None else 0, nm, k,
-                    q, mt, ident, out.data_ptr(), x.device.index,
+                    q, mt, ident, *width, out.data_ptr(), x.device.index,
                     ctypes.byref(ctypes.c_int()), stream())
         return args, out
 
