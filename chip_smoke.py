@@ -98,6 +98,29 @@ Phases, in order; each prints lines that start with its name:
            run one ``fused_dc_lanes`` launch a step; per-app query walls
            (p50, p99) from the port's obs histograms, batch walls and
            widths, counters, seeded iterations saved, engine set-ups.
+  delta    dynamic graphs, with deltas confined to the first ceil(0.05 k)
+           partitions (benchmarks/bench_delta.py's confined_delta): 10,000
+           insertions and 1,000 deletions of existing edges relaid out by
+           ``apply_delta``, field for field a full ``build_layout`` of the
+           edited graph (both walls); after 10,000 insertions, BFS (the
+           packed seeded program) and SSSP from the same vertex resumed
+           through ``Engine.run(resume_from=, touched=)`` on each DC
+           lowering, bit-exact with cold runs on the new layout, and a
+           deletion delta or a PageRank program refused before any launch;
+           on the symmetrized graph after 10,000 symmetric insertions, CC
+           resumed (bit-exact with cold) and PageRank warm-started (60
+           iterations from 120 on the old graph, within max-abs 1e-6 and L1
+           1e-5 of 160 cold ones); the serve phase's server swapped to the
+           new layout with the delta (epoch bump, no old-tag key left, the
+           clean landmarks migrated) and one round of 8 BFS and 8 SSSP
+           queries checked as in serve.  Then telemetry: the run's event
+           stream must hold every engine, delta and serve event and pass
+           ``tools/check_obs_schema.py``; one PageRank iteration on each
+           lowering under ``obs.trace`` must show the ``ppm.*.cuda`` scopes
+           with their kernels' device records (beside the kernel rows'
+           ``device_ms``); PageRank's ``run`` iteration and the fused DC
+           wrapper's host time with telemetry on and off, and the host
+           time of recording one iteration.
   local    Nibble, heat-kernel PageRank and PageRank-Nibble from the same
            vertex, in hybrid and in dc mode on each DC lowering, against the
            same app through the plain versions on the card within L1 1e-5,
@@ -107,8 +130,8 @@ Phases, in order; each prints lines that start with its name:
            unset tiles reading the winner back from the cache.
 
 Launch counts are set to 0 before each path (fused apps, composed apps,
-each batched, payload and local run, the serve stream, tuning) and read
-after it.  Then one JSON line with the kernels' numbers,
+each batched, payload and local run, the serve stream, each resumed and
+symmetrized delta run and the post-swap round, tuning) and read after it.  Then one JSON line with the kernels' numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device.  The full
@@ -116,6 +139,7 @@ record, the compilers' register and shared-memory reports included, is
 also written to ``--report`` (default ``results/chip_smoke.json``).
 """
 import argparse
+import collections
 import dataclasses
 import itertools
 import json
@@ -226,6 +250,46 @@ def kernel_times(fn, reps: int) -> dict:
 
 def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def scope_kernels(trace_path, names) -> dict:
+    """The device kernel records a Chrome trace of ``torch.profiler``
+    attributes to each ``ppm.*`` scope in ``names``: a kernel belongs to a
+    scope when its launch record (runtime or driver API) with the same
+    correlation id lies inside one of the scope's host ranges, or when a
+    ``gpu_user_annotation`` of the scope holds it on the device timeline.
+    Per scope: its host ranges, each kernel's summed device time (us) by
+    name, and how many kernels each rule attributed."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+
+    def inside(t, spans):
+        return any(s["ts"] <= t <= s["ts"] + s["dur"] for s in spans)
+
+    out = {}
+    for name in names:
+        host = [e for e in events if e.get("name") == name
+                and e.get("cat") == "user_annotation"]
+        device = [e for e in events if e.get("name") == name
+                  and e.get("cat") == "gpu_user_annotation"]
+        rec = {"scopes": len(host), "gpu_annotations": len(device),
+               "kernels": collections.Counter(),
+               "by_launch": 0, "by_gpu_annotation": 0}
+        for k in kernels:
+            t = launch_ts.get(k.get("args", {}).get("correlation"))
+            if t is not None and inside(t, host):
+                rec["by_launch"] += 1
+            elif inside(k["ts"], device):
+                rec["by_gpu_annotation"] += 1
+            else:
+                continue
+            rec["kernels"][k["name"]] += k["dur"]
+        rec["kernels"] = dict(rec["kernels"])
+        out[name] = rec
+    return out
 
 
 def main() -> int:
@@ -1745,7 +1809,407 @@ def main() -> int:
         "launches": {kk: v for kk, v in serve_launches.items() if v},
         "int64_lane_steps": serve_wide_lanes}
     say("serve", **report["serve"])
-    del srv, answers, events
+    del answers, events
+
+    # ---------------- delta ----------------
+    # Dynamic graphs.  The deltas are benchmarks/bench_delta.py's
+    # confined_delta: both endpoints of every edit in the first
+    # ceil(0.05 k) partitions, the dirty share of an update to one region
+    # of a graph.  A mixed delta (insertions and deletions of existing
+    # edges) relaid out by apply_delta against a full build_layout of the
+    # edited graph; BFS and SSSP resumed from the old fixpoint after an
+    # insertion-only delta (Engine.run(resume_from=, touched=); BFS as the
+    # packed seeded program, whose relaxation is exact from any upper
+    # bound), bit-exact with cold runs on each DC lowering; CC resumed and
+    # PageRank warm-started on the symmetrized graph; the serve phase's
+    # server swapped to the new symmetrized layout with the delta and
+    # answering one round there; then the telemetry the run recorded.
+    from repro_torch.apps.bfs import bfs_seeded_pack
+    from repro_torch.serve import cache as cache_lib
+    obs.reset()
+    delta_rec = report["delta"] = {}
+    d_rng = np.random.default_rng(args.seed + 1)
+    hi = min(int(np.ceil(0.05 * L.k)) * L.q, g.n)
+    geometry = dict(k=L.k, edge_tile=L.edge_tile, msg_tile=L.msg_tile,
+                    fold_tile=L.fold_tile, fold_q=L.fold_q)
+    dc_kernels = {"fused": ("fused_dc",),
+                  "composed": ("dc_gather", "segment_combine")}
+
+    def confined_inserts(layout, count, symmetric=False):
+        d = rt.DeltaBuffer.for_layout(layout)
+        u, v = d_rng.integers(0, hi, count), d_rng.integers(0, hi, count)
+        w = (d_rng.random(count) + 0.1).astype(np.float32)
+        d.insert(u, v, w)
+        if symmetric:
+            d.insert(v, u, w)
+        return d
+
+    def same_layout(got, want, what):
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(b, np.ndarray):
+                check(a.dtype == b.dtype and a.shape == b.shape
+                      and np.array_equal(a, b), f"{what}: {f.name} differs")
+            else:
+                check(a == b, f"{what}: {f.name} is {a}, not {b}")
+
+    # relayout: 10,000 insertions and 1,000 deletions of existing edges
+    d_mixed = confined_inserts(L, 10_000)
+    e_src = np.repeat(np.arange(hi, dtype=np.int64),
+                      np.diff(g.indptr[:hi + 1]))
+    e_dst = g.indices[:int(g.indptr[hi])].astype(np.int64)
+    pick = d_rng.choice(np.flatnonzero(e_dst < hi), 1000, replace=False)
+    d_mixed.delete(e_src[pick], e_dst[pick])
+    del e_src, e_dst
+    t = time.perf_counter()
+    L_inc = rt.apply_delta(L, d_mixed)
+    apply_s = time.perf_counter() - t
+    t = time.perf_counter()
+    g_edit = d_mixed.edit_graph(g)
+    edit_s = time.perf_counter() - t
+    L_full = build_layout(g_edit, **geometry)
+    rebuild_s = time.perf_counter() - t - edit_s
+    same_layout(L_inc, L_full, "delta: apply_delta of the mixed delta")
+    delta_rec["relayout"] = {
+        "layout": "directed", "inserts": d_mixed.num_inserts,
+        "deletes": d_mixed.num_deletes, "k": L.k,
+        "dirty_src_parts": len(d_mixed.src_partitions()),
+        "dirty_parts": len(d_mixed.dirty_partitions()),
+        "apply_delta_s": apply_s, "edit_graph_s": edit_s,
+        "build_layout_s": rebuild_s,
+        "apply_over_rebuild": apply_s / (edit_s + rebuild_s),
+        "equal_to_rebuild": True}
+    say("delta", **delta_rec["relayout"])
+    del L_inc, L_full, g_edit
+
+    # resume on the directed layout after 10,000 confined insertions
+    d_ins = confined_inserts(L, 10_000)
+    t = time.perf_counter()
+    L2 = rt.apply_delta(L, d_ins)
+    delta_rec["resume_apply_delta_s"] = time.perf_counter() - t
+    vid = torch.arange(n_pad, dtype=torch.int32, device=dev).view(
+        torch.uint32)
+    src_frontier = np.zeros(n_pad, bool)
+    src_frontier[src] = True
+
+    def cold_start(app):
+        if app == "bfs":
+            level = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+            level[src] = 0
+            return rt.apps.bfs_seeded_program(), {
+                "best": bfs_seeded_pack(level, torch.full_like(level, src)),
+                "vid": vid}
+        dist = torch.full((n_pad,), float("inf"), device=dev)
+        dist[src] = 0.0
+        return rt.apps.sssp_program(), {"dist": dist}
+
+    def iter_record(stats, wall):
+        return {"iterations": len(stats), "wall_s": wall,
+                "modes": [s.mode for s in stats],
+                "dc_iterations": sum(s.dc_parts > 0 for s in stats),
+                "iter_wall_s": [s.wall_s for s in stats]}
+
+    def engine_iters_recorded(fn, stats_of=lambda out: out[2]):
+        """``fn()``'s result and wall; each of its stats must have been
+        recorded as one engine_iter event."""
+        n0 = len(obs.events("engine_iter"))
+        out, wall = timed(fn)
+        check(len(obs.events("engine_iter")) - n0 == len(stats_of(out)),
+              "delta: engine_iter events differ from the run's stats")
+        return out, wall
+
+    delta_rec["resume"] = {}
+    for app in ("bfs", "sssp"):
+        prog, state0 = cold_start(app)
+        (old, _, old_stats), old_wall = timed(
+            lambda: rt.Engine(L, prog).run(dict(state0), src_frontier))
+        for path in ("fused", "composed"):
+            if path == "composed":
+                os.environ[ENV_FUSED] = "0"
+            try:
+                _build.reset_launch_counts()
+                eng, setup_s = timed(lambda: rt.Engine(L2, prog))
+                (warm, _, w_stats), w_wall = engine_iters_recorded(
+                    lambda: eng.run(resume_from=old, touched=d_ins))
+                (cold, _, c_stats), c_wall = engine_iters_recorded(
+                    lambda: eng.run(dict(state0), src_frontier))
+                launched = counts()
+            finally:
+                os.environ.pop(ENV_FUSED, None)
+            check(eng.fused == (path == "fused"),
+                  f"delta: {app} engine took the wrong DC path")
+            for key in state0:
+                check(torch.equal(bits(warm[key]), bits(cold[key])),
+                      f"delta: resumed {app} ({path}) {key} differs from "
+                      "the cold run")
+            for name in dc_kernels[path]:
+                check(launched[name] > 0, f"delta: {name} was not launched "
+                      f"by the {path} resumed {app} runs")
+            delta_rec["resume"][f"{app}_{path}"] = {
+                "engine_setup_s": setup_s, "old_iterations": len(old_stats),
+                "old_wall_s": old_wall,
+                "resumed": iter_record(w_stats, w_wall),
+                "cold": iter_record(c_stats, c_wall), "bit_exact": True,
+                "launches": {k: v for k, v in launched.items() if v}}
+            say("delta", app=app, path=path,
+                **delta_rec["resume"][f"{app}_{path}"])
+        if app == "bfs":
+            # the seeded program's answer is stock BFS's on the new layout
+            key, payload_ = M.unpack_key_payload(warm["best"][:g.n])
+            stock = rt.bfs(L2, src)
+            reached = torch.isfinite(key)
+            check(np.array_equal(
+                torch.where(reached, key.to(torch.int32), -1).cpu().numpy(),
+                stock["level"]) and np.array_equal(
+                torch.where(reached, M.as_bits(payload_), -1).cpu().numpy(),
+                stock["parent"]),
+                "delta: resumed bfs differs from stock bfs on the new layout")
+        del eng, warm, cold
+
+    # refusals, before any launch: a delta with deletions, a PageRank program
+    pr_eng = rt.Engine(L2, rt.apps.pagerank_program(L2.n), mode="dc")
+    sssp_eng = rt.Engine(L2, rt.apps.sssp_program())
+    _build.reset_launch_counts()
+    refusals = {
+        "deletion_delta": lambda: sssp_eng.run(resume_from=old,
+                                               touched=d_mixed),
+        "pagerank_program": lambda: pr_eng.run(
+            resume_from={"pr": torch.zeros(n_pad, device=dev),
+                         "deg": torch.zeros(n_pad, device=dev)},
+            touched=d_ins)}
+    for what, fn in refusals.items():
+        try:
+            fn()
+            check(False, f"delta: resume with {what} did not raise")
+        except ValueError:
+            pass
+    check(sum(counts().values()) == 0, "delta: a refused resume launched")
+    delta_rec["refused_before_launch"] = sorted(refusals)
+    del pr_eng, sssp_eng, old, L2, d_mixed
+
+    # the symmetrized layout: 10,000 symmetric insertions
+    ds = confined_inserts(S, 10_000, symmetric=True)
+    t = time.perf_counter()
+    S2 = rt.apply_delta(S, ds)
+    sym = {"apply_delta_s": time.perf_counter() - t,
+           "inserts": ds.num_inserts,
+           "dirty_parts": len(ds.dirty_partitions())}
+    _build.reset_launch_counts()
+    cc_old, sym["cc_old_wall_s"] = timed(lambda: rt.connected_components(S))
+    cc_warm, cc_warm_wall = engine_iters_recorded(
+        lambda: rt.connected_components(S2, resume_labels=cc_old["label"],
+                                        touched=ds),
+        stats_of=lambda out: out["stats"])
+    cc_cold, cc_cold_wall = timed(lambda: rt.connected_components(S2))
+    check(np.array_equal(cc_warm["label"], cc_cold["label"]),
+          "delta: resumed cc differs from the cold run")
+    sym["cc"] = {"resumed": iter_record(cc_warm["stats"], cc_warm_wall),
+                 "cold": iter_record(cc_cold["stats"], cc_cold_wall),
+                 "bit_exact": True}
+    pr_old, sym["pagerank_old_120_wall_s"] = timed(
+        lambda: rt.pagerank(S, iters=120)["pr"])
+    pr_warm, pr_warm_wall = timed(
+        lambda: rt.pagerank(S2, iters=60, pr0=pr_old)["pr"])
+    pr_ref, pr_ref_wall = timed(lambda: rt.pagerank(S2, iters=160)["pr"])
+    diff = np.abs(pr_warm.astype(np.float64) - pr_ref)
+    sym["pagerank"] = {"warm_60_wall_s": pr_warm_wall,
+                       "cold_160_wall_s": pr_ref_wall,
+                       "max_abs": float(diff.max()), "l1": float(diff.sum())}
+    check(sym["pagerank"]["max_abs"] <= 1e-6 and sym["pagerank"]["l1"]
+          <= 1e-5, f"delta: pagerank(pr0=) is {sym['pagerank']} from 160 "
+          "cold iterations")
+    sym["launches"] = {k: v for k, v in counts().items() if v}
+    check(sym["launches"].get("fused_dc", 0) > 0,
+          "delta: the symmetrized runs launched no fused_dc")
+    delta_rec["symmetrized"] = sym
+    say("delta", layout="symmetrized", **sym)
+    del cc_old, cc_warm, cc_cold, pr_old, pr_warm, pr_ref
+
+    # the server: swap to the new symmetrized layout with the delta
+    old_tag = srv._layout_tag
+    changed = {p for p, (a, b) in enumerate(zip(
+        cache_lib.partition_tags(S), cache_lib.partition_tags(S2)))
+        if a != b}
+    sem_old = [key for key in srv.cache.keys() if isinstance(key, str)
+               and key.startswith(f"sem|{old_tag}|")]
+    clean = sum(1 for key in sem_old if not set(np.asarray(
+        srv.cache.get(key)["parts"]).tolist()) & changed)
+    epoch0 = srv.epoch
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    srv.swap_layout(S2, delta=ds)
+    swap_s = time.perf_counter() - t
+    swap = obs.events("epoch_swap")[-1]
+    check(srv.epoch == epoch0 + 1, "delta: the epoch did not bump")
+    check(not any(f"|{old_tag}|" in key for key in srv.cache.keys()),
+          "delta: a key of the old tag survived the swap")
+    check(swap["delta"] is True and swap["migrated"] == clean
+          and swap["changed_parts"] == len(changed),
+          f"delta: epoch_swap {swap} against {clean} clean landmarks of "
+          f"{len(sem_old)} and {len(changed)} changed partitions")
+    seeded_sources.clear()
+    qid += 2                       # past the serve phase's CC and PageRank
+    round_qids = []
+    for app in ("bfs", "sssp"):
+        for s in srv_rng.choice(pool, 8):
+            srv.submit(GraphQuery(qid, app, {"source": int(s)}))
+            round_qids.append(qid)
+            qid += 1
+    t = time.perf_counter()
+    done = {q.qid: q for q in srv.run() if q.qid >= round_qids[0]}
+    round_s = time.perf_counter() - t
+    check(sorted(done) == round_qids, "delta: the server lost a query")
+    for app, (fn, program, keys) in alone.items():
+        if app == "sssp_parents":
+            continue
+        eng = rt.Engine(S2, program)
+        for q in done.values():
+            if q.app == app:
+                s = q.params["source"]
+                want = fn(S2, s, engine=eng)
+                for key in keys:
+                    check(same_answer(app, s, key, q.result[key], want[key]),
+                          f"delta: served {app} from {s} after the swap: "
+                          f"{key} differs from the app alone")
+        del eng
+    hists = obs.snapshot()["histograms"]
+    delta_rec["serve"] = {
+        "swap_s": swap_s, "evicted": swap["evicted"],
+        "migrated": swap["migrated"], "changed_parts": swap["changed_parts"],
+        "old_sem_entries": len(sem_old), "round_s": round_s,
+        "query_wall_s": {app: {p: hists[
+            f"serve.query_wall_s{{app={app},layout={srv._layout_tag}}}"][p]
+            for p in ("count", "p50", "p99")} for app in ("bfs", "sssp")},
+        "seeded_sources": sorted(f"{a}:{s}" for a, s in seeded_sources),
+        "launches": {k: v for k, v in counts().items() if v}}
+    say("delta", layout="served", **delta_rec["serve"])
+    del srv, done
+
+    # telemetry: a batch whose lanes drain at different steps (the
+    # lowest-degree vertex's drains first), then the stream as a whole
+    lone = int(np.argmin(np.where(np.arange(n_pad) == src, n_pad,
+                                  S2.deg)[:g.n]))
+    rt.bfs_multi(S2, [src, lone])
+    events = obs.events()
+    kinds = collections.Counter(e["event"] for e in events)
+    need = ("engine_iter", "batch_iter", "lane_compaction", "fused_run",
+            "delta_apply", "epoch_swap", "serve_batch")
+    check(all(kinds[name] > 0 for name in need),
+          f"delta: the event stream lacks one of {need}: {dict(kinds)}")
+    check(all(obs.validate_event(e) == [] for e in events),
+          "delta: an obs event breaks the schema")
+    obs_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    written = obs.export.write_jsonl(obs_dir / "events.jsonl")
+    tool = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_schema.py"),
+         str(obs_dir / "events.jsonl"), "--require",
+         "engine_iter,batch_iter,fused_run,delta_apply,epoch_swap"],
+        capture_output=True, text=True)
+    check(tool.returncode == 0, f"delta: check_obs_schema.py failed: "
+          f"{tool.stdout[-2000:]} {tool.stderr[-2000:]}")
+    telemetry = {"events": dict(kinds), "written": written,
+                 "check_obs_schema": tool.stdout.strip().splitlines()[-1:]}
+
+    # one PageRank run iteration on each lowering under obs.trace
+    pr_state = {"pr": torch.full((n_pad,), 1.0 / L.n, device=dev),
+                "deg": torch.from_numpy(L.deg.astype(np.float32)).to(dev)}
+    all_front = np.zeros(n_pad, bool)
+    all_front[:L.n] = True
+    # each scope's kernel, by its row and the fragments of its name
+    traced = {"fused": {"ppm.fused_dc.cuda": ("fused_dc", ("FusedEdges",))},
+              "composed": {"ppm.scatter.cuda": ("dc_gather",
+                                                ("staged_kernel",
+                                                 "l2_kernel")),
+                           "ppm.gather.cuda": ("segment_combine",
+                                               ("CombineEdges",))}}
+    telemetry["trace"] = {}
+    pr_engines = {}
+    for path, scopes in traced.items():
+        if path == "composed":
+            os.environ[ENV_FUSED] = "0"
+        try:
+            eng = pr_engines[path] = rt.Engine(
+                L, rt.apps.pagerank_program(L.n), mode="dc")
+        finally:
+            os.environ.pop(ENV_FUSED, None)
+        eng.run(dict(pr_state), all_front, max_iters=1, until_empty=False)
+        trace_path = Path(args.report).with_name(
+            f"chip_smoke_trace_pagerank_{path}.json")
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        with obs.override_enabled(True):
+            with obs.trace(trace_path):
+                eng.run(dict(pr_state), all_front, max_iters=1,
+                        until_empty=False)
+                torch.cuda.synchronize()
+        found = scope_kernels(trace_path, list(scopes))
+        for scope, (row, fragments) in scopes.items():
+            rec = found[scope]
+            mine = {name: us for name, us in rec["kernels"].items()
+                    if any(f in name for f in fragments)}
+            check(rec["scopes"] > 0 and mine,
+                  f"delta: the {path} trace holds no device record of "
+                  f"{row} inside {scope}: {rec}")
+            rec["kernel_us_per_scope"] = sum(mine.values()) / rec["scopes"]
+            rec["row_device_ms"] = report[row]["device_ms"]
+            say("delta", trace=path, scope=scope, **rec)
+        telemetry["trace"][path] = dict(found, file=str(trace_path))
+
+    # what telemetry costs.  With obs on and off, in turns: PageRank's 10
+    # run iterations (host clock, ending in a synchronize), and the fused DC
+    # wrapper's host time.  Alone, the two things obs adds on that path:
+    # recording one iteration (the loop is host-driven, so that adds to each
+    # iteration's wall) and a kernel scope entered with no profiler running
+    def spread(values):
+        q1, med, q3 = np.percentile(values, [25, 50, 75])
+        return {"median": float(med), "q1": float(q1), "q3": float(q3),
+                "min": float(np.min(values))}
+
+    def per_call_us(fn, reps):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) * 1e6 / reps
+
+    def scope():
+        with obs.kernel_scope("ppm.fused_dc.cuda"):
+            pass
+
+    eng = pr_engines["fused"]
+    walls = {"on": [], "off": []}
+    for turn in ("on", "off", "off", "on") * 6:
+        with obs.override_enabled(turn == "on"):
+            walls[turn].append(1e2 * timed(lambda: eng.run(
+                dict(pr_state), all_front, max_iters=10,
+                until_empty=False))[1])
+    table = payload(ns, torch.float32)
+    live = torch.ones(ns, dtype=torch.bool, device=dev)
+    host = {"on": [], "off": []}
+    for turn in ("on", "off", "off", "on") * 4:
+        with obs.override_enabled(turn == "on"):
+            host[turn].append(host_ms(lambda: eng._fused(table, live), 200))
+    _, _, pr_stats = eng.run(dict(pr_state), all_front, max_iters=1,
+                             until_empty=False)
+    record_us = per_call_us(lambda: obs.record_engine_iter(
+        "core", pr_stats[0], dc_e=1, sc_e=0), 20_000)
+    obs.reset()
+    scope_us = {}
+    for turn in ("on", "off"):
+        with obs.override_enabled(turn == "on"):
+            scope_us[turn] = per_call_us(scope, 100_000)
+    telemetry["cost"] = c = {
+        "pagerank_run_iter_ms": {k: spread(v) for k, v in walls.items()},
+        "fused_dc_wrapper_host_ms": {k: spread(v) for k, v in host.items()},
+        "record_engine_iter_us": record_us, "kernel_scope_us": scope_us}
+    iter_ms = {k: v["median"] for k, v in c["pagerank_run_iter_ms"].items()}
+    c["pagerank_run_iter_change"] = iter_ms["on"] / iter_ms["off"] - 1
+    c["record_share_of_iter"] = record_us / (1e3 * iter_ms["off"])
+    c["fused_dc_host_us_change"] = 1e3 * (
+        c["fused_dc_wrapper_host_ms"]["on"]["median"]
+        - c["fused_dc_wrapper_host_ms"]["off"]["median"])
+    delta_rec["telemetry"] = telemetry
+    say("delta", telemetry=telemetry)
+    shutil.rmtree(obs_dir)
+    del pr_engines, eng, S2, ds, d_ins, table, live
 
 
     # ---------------- local ----------------

@@ -9,9 +9,9 @@ from .apps import (bfs, bfs_multi, bfs_seeded_multi, connected_components,
                    heat_kernel_pr, nibble, pagerank, pagerank_nibble, sssp,
                    sssp_multi, sssp_parents_multi, sssp_with_parents)
 from .core.engine import Engine
-from .graph import build_layout
+from .graph import DeltaBuffer, apply_delta, build_layout
 
-__all__ = ["Engine", "bfs", "bfs_multi", "bfs_seeded_multi", "build_layout",
-           "connected_components", "heat_kernel_pr", "nibble", "pagerank",
-           "pagerank_nibble", "sssp", "sssp_multi", "sssp_parents_multi",
-           "sssp_with_parents"]
+__all__ = ["DeltaBuffer", "Engine", "apply_delta", "bfs", "bfs_multi",
+           "bfs_seeded_multi", "build_layout", "connected_components",
+           "heat_kernel_pr", "nibble", "pagerank", "pagerank_nibble", "sssp",
+           "sssp_multi", "sssp_parents_multi", "sssp_with_parents"]

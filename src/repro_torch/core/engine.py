@@ -45,6 +45,17 @@ with the per-lane partition mask computed on the device, and every DC kernel
 of the step runs once for all lanes in its lane form (one launch on a card).
 Converged lanes are frozen inside a step and compacted out between steps
 (:func:`_run_batched_loop`).
+
+:meth:`Engine.run` also resumes from an old fixpoint after an
+insertion-only graph delta (``resume_from=`` / ``touched=``, the
+reference's incremental entry).
+
+Telemetry (:mod:`repro_torch.obs`), as in the reference: ``run`` records an
+``engine_iter`` event, a step-wall histogram and an Eq. 1 cost sample per
+iteration it keeps stats for, the batched loop ``batch_iter`` and
+``lane_compaction`` events, and ``run_fused`` a ``fused_run`` event.
+Everything recorded is already on the host; only ``run_fused`` waits for the
+card, and only while telemetry is on.
 """
 from __future__ import annotations
 
@@ -53,6 +64,8 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
+from ..graph.delta import DeltaBuffer
 from ..kernels.fused_step import fused_enabled
 from ..kernels.ops import (FoldKernel, FusedDCKernel, GatherKernel,
                            ScatterKernel)
@@ -112,7 +125,9 @@ def _put_lanes(x: torch.Tensor, idx: torch.Tensor,
 
 
 def _run_batched_loop(step, states: dict, active, max_iters: int,
-                      until_empty: bool, collect_stats: bool):
+                      until_empty: bool, collect_stats: bool,
+                      engine_name: str = "core", program: str = "",
+                      wire_bytes_fn=None):
     """Host-driven batched convergence loop of :meth:`Engine.run_batched`
     (kept a module function, as in the reference, for the multi-device
     engine).
@@ -126,7 +141,13 @@ def _run_batched_loop(step, states: dict, active, max_iters: int,
     (:func:`_compact_lane_index`), stepped, and scattered back.  With
     ``until_empty=False`` a step with no live lane is skipped.  Returns
     ``(states, active, stats)``, ``stats`` a list of
-    :class:`BatchIterStats`."""
+    :class:`BatchIterStats`.
+
+    Telemetry, when obs is on: a ``lane_compaction`` event whenever lanes
+    are repacked, and with ``collect_stats`` a ``batch_iter`` event, a
+    step-wall histogram sample and a ``dc`` cost sample per step, all from
+    host values the loop already holds.  ``wire_bytes_fn(n_lanes)``, when
+    given, prices the step's exchange payload into the event."""
     B = active.shape[0]
     stats = []
     for it in range(max_iters):
@@ -139,11 +160,16 @@ def _run_batched_loop(step, states: dict, active, max_iters: int,
         t0 = time.perf_counter()
         n_act = int(active.sum()) if collect_stats else 0
         if n_lanes == B:
+            W = B
             states, active = step(states, active, it)
         else:
             # lane compaction: converged lanes drop out of the batch
             # instead of riding along as frozen work
-            idx, _ = _compact_lane_index(lane_act, active.device)
+            idx, W = _compact_lane_index(lane_act, active.device)
+            if obs.enabled():
+                obs.event("lane_compaction", engine=engine_name,
+                          program=program, it=it, lanes_active=n_lanes,
+                          width=W, batch=B)
             sub_states, sub_active = step(
                 {key: _take_lanes(v, idx) for key, v in states.items()},
                 active.index_select(0, idx), it)
@@ -152,10 +178,21 @@ def _run_batched_loop(step, states: dict, active, max_iters: int,
             active = active.index_copy(0, idx, sub_active)
         if active.is_cuda:
             torch.cuda.synchronize(active.device)
+        wall = time.perf_counter() - t0
         if collect_stats:
             stats.append(BatchIterStats(
-                it=it, lanes_active=n_lanes, n_active=n_act,
-                wall_s=time.perf_counter() - t0))
+                it=it, lanes_active=n_lanes, n_active=n_act, wall_s=wall))
+            if obs.enabled():
+                extra = ({} if wire_bytes_fn is None else
+                         {"wire_bytes": int(wire_bytes_fn(n_lanes))})
+                obs.event("batch_iter", engine=engine_name,
+                          program=program, it=it, lanes_active=n_lanes,
+                          n_active=n_act, width=W, wall_s=wall, **extra)
+                obs.observe("engine.batch_step_wall_s", wall,
+                            engine=engine_name, program=program or "?")
+                obs.cost_sample("dc", n_act, wall, it=it, batched=True,
+                                width=W, engine=engine_name,
+                                program=program)
     return states, active, stats
 
 
@@ -327,12 +364,59 @@ class Engine:
         return state, new_active
 
     # ------------------------------------------------------------------
-    def run(self, state: dict, frontier, max_iters: int = 10_000,
-            until_empty: bool = True, collect_stats: bool = True):
+    def run(self, state: dict = None, frontier=None,
+            max_iters: int = 10_000, until_empty: bool = True,
+            collect_stats: bool = True, *, resume_from: dict = None,
+            touched=None):
         """Host-driven loop: per-iteration mode decision (paper Eq. 1).
 
+        ``resume_from=`` / ``touched=`` is the incremental entry for dynamic
+        graphs: a state converged on the pre-delta layout resumes with the
+        delta-touched vertices (a ``[n_pad]`` mask, or the
+        :class:`repro_torch.graph.delta.DeltaBuffer` itself) as the initial
+        frontier.  After an insertion-only delta a program of an idempotent
+        monoid (``min``, ``max``, ``or``, ``min_with_payload``) converges
+        to exactly the cold fixpoint of the new graph: the old fixpoint is
+        an upper bound of the new one whose only violated constraints start
+        at touched vertices (the reference's argument).  A delta with
+        deletions, or another monoid, raises ``ValueError``: run cold, or
+        warm-start PageRank through ``pagerank(pr0=)``.
+
         Returns ``(state, active, stats)``, ``stats`` a list of
-        :class:`IterStats`."""
+        :class:`IterStats`, each also recorded as an ``engine_iter`` event
+        while obs is on."""
+        if resume_from is not None:
+            if state is not None:
+                raise ValueError("pass either state= or resume_from=, "
+                                 "not both")
+            if touched is None:
+                raise ValueError("resume_from= needs touched= (the "
+                                 "delta-touched initial frontier, or the "
+                                 "DeltaBuffer itself)")
+            # relaxation only lowers values, and a deleted edge may need
+            # one to rise: resuming would converge to a stale answer
+            if isinstance(touched, DeltaBuffer):
+                if touched.num_deletes:
+                    raise ValueError(
+                        "resume_from= is exact only for insertion-only "
+                        f"deltas; this delta removes {touched.num_deletes}"
+                        " edge(s) and deleted edges may require values to "
+                        "rise, which monotone relaxation cannot do: run "
+                        "cold (state=/frontier=) on the new layout "
+                        "instead")
+                touched = touched.touched()
+            if self.program.monoid.name not in ("min", "max", "or",
+                                                "min_with_payload"):
+                raise ValueError(
+                    "resume_from= requires an idempotent monoid (min/max/"
+                    f"or): re-folding under {self.program.monoid.name!r} "
+                    "double-counts contributions already absorbed into "
+                    "the old fixpoint; PageRank-style programs resume "
+                    "through pagerank(pr0=) instead")
+            state, frontier = resume_from, touched
+        if state is None or frontier is None:
+            raise ValueError("run() needs state+frontier (or "
+                             "resume_from=+touched=)")
         active = torch.as_tensor(frontier, dtype=torch.bool,
                                  device=self.device)
         stats = []
@@ -349,22 +433,29 @@ class Engine:
             else:
                 dc_mask = self.cost.choose_dc(ea, has_active)
             sc_sel = (~dc_mask) & has_active
+            sc_e = int(ea[sc_sel].sum())
             t0 = time.perf_counter()
-            state, active = self.step(state, active, dc_mask, it,
-                                      be=int(ea[sc_sel].sum()))
+            state, active = self.step(state, active, dc_mask, it, be=sc_e)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             if collect_stats:
                 b = self.cost.bytes_for(dc_mask, ea, has_active)
                 dc_p, sc_p = int(dc_mask.sum()), int(sc_sel.sum())
-                stats.append(IterStats(
-                    it=it, n_active=n_active, e_active=int(ea.sum()),
+                e_active = int(ea.sum())
+                st = IterStats(
+                    it=it, n_active=n_active, e_active=e_active,
                     dc_parts=dc_p, sc_parts=sc_p,
                     dc_bytes=b["dc_bytes"], sc_bytes=b["sc_bytes"],
                     wall_s=time.perf_counter() - t0,
                     mode=("dc" if sc_p == 0 else
                           "sc" if dc_p == 0 else "hybrid"),
-                    program=self.program.name))
+                    program=self.program.name)
+                stats.append(st)
+                # dc_e / sc_e split the active edges by stream (a partition
+                # with no active vertex has none): single-mode steps are
+                # clean points for an Eq. 1 calibration
+                obs.record_engine_iter("core", st, dc_e=e_active - sc_e,
+                                       sc_e=sc_e)
         return state, active, stats
 
     # ------------------------------------------------------------------
@@ -451,17 +542,29 @@ class Engine:
         states = {key: torch.as_tensor(v, device=self.device)
                   for key, v in states.items()}
         return _run_batched_loop(self.batched_step, states, active,
-                                 max_iters, until_empty, collect_stats)
+                                 max_iters, until_empty, collect_stats,
+                                 engine_name="core",
+                                 program=self.program.name)
 
     # ------------------------------------------------------------------
     def run_fused(self, state: dict, frontier, iters: int):
         """Fixed-iteration loop in DC mode with no host round trips.
 
         This is the PageRank-style path: all partitions scatter DC every
-        iteration (paper §6.2.2: "PageRank always uses DC mode")."""
+        iteration (paper §6.2.2: "PageRank always uses DC mode").  While obs
+        is on, the loop waits for the card at its end and records a
+        ``fused_run`` event with its wall time; otherwise it returns
+        without waiting."""
         active = torch.as_tensor(frontier, dtype=torch.bool,
                                  device=self.device)
         dc_mask = np.ones(self.k, bool)
+        timed = obs.enabled()
+        t0 = time.perf_counter()
         for it in range(iters):
             state, active = self.step(state, active, dc_mask, it)
+        if timed:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            obs.event("fused_run", engine="core", program=self.program.name,
+                      iters=iters, wall_s=time.perf_counter() - t0)
         return state, active

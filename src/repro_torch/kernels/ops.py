@@ -15,6 +15,12 @@ Each takes ``plain=True`` to run the plain PyTorch versions on any device;
 kernels.  Otherwise the device of the tensors decides: the plain version on
 the CPU, the CUDA kernel on a card.  The launch counts live with the kernels
 (:data:`repro_torch.kernels._build.KERNELS`).
+
+Each call runs under :func:`repro_torch.obs.tracing.kernel_scope`, named
+``ppm.<kernel>.<cuda|plain>`` after the route it takes (the reference's
+``ppm.<kernel>.<backend>``), so an ``obs.trace`` capture attributes the
+card's kernels to their wrapper; the lane and int64 forms keep their
+kernel's name.
 """
 from __future__ import annotations
 
@@ -22,12 +28,19 @@ import numpy as np
 import torch
 
 from ..core import monoid as M
+from ..obs.tracing import kernel_scope
 from .dc_gather import dc_gather, dc_pieces, ref_dc_gather
 from .fold_block import blocked_segment_fold, segment_fold
 from .fused_step import (EdgeTiles, fused_scatter_fold, global_edges,
                          ref_fused_scatter_fold)
 from .segment_combine import ref_segment_combine, segment_combine
 from .spmv_block import ref_spmv_block, spmv_block
+
+
+def _scope_name(kernel: str, plain: bool, device) -> str:
+    route = "cuda" if not plain and torch.device(device).type == "cuda" \
+        else "plain"
+    return f"ppm.{kernel}.{route}"
 
 
 class FoldKernel:
@@ -37,12 +50,18 @@ class FoldKernel:
     def __init__(self, monoid_name: str, plain: bool = False):
         self.monoid = monoid_name
         self.plain = plain
+        # by vals.is_cuda: the stream's device picks the route
+        self._obs_scope = {on_card: _scope_name(
+            "fold", plain, "cuda" if on_card else "cpu")
+            for on_card in (False, True)}
 
     def __call__(self, vals, valid, ids, num_segments):
-        if self.plain:
-            return segment_fold(vals, valid, ids, num_segments, self.monoid)
-        return blocked_segment_fold(vals, valid, ids, num_segments,
-                                    monoid=self.monoid)
+        with kernel_scope(self._obs_scope[vals.is_cuda]):
+            if self.plain:
+                return segment_fold(vals, valid, ids, num_segments,
+                                    self.monoid)
+            return blocked_segment_fold(vals, valid, ids, num_segments,
+                                        monoid=self.monoid)
 
 
 def _on_device(array: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -146,6 +165,7 @@ class FusedDCKernel(_TileGeometry):
         self.tiles = EdgeTiles(self.edge_src_local, self.edge_dst_local,
                                self.tile_src_part, self.part_tile_off,
                                self.q, self.edge_tile)
+        self._obs_scope = _scope_name("fused_dc", plain, self.device)
         self.edge_src = self.edge_dst = None     # the plain route's idx, dst
         if plain or self.device.type == "cpu":
             self.edge_src, self.edge_dst = global_edges(
@@ -156,15 +176,16 @@ class FusedDCKernel(_TileGeometry):
     def __call__(self, table, table_valid):
         aw = self.apply_weight
         w = self.edge_w if aw is not None else None
-        if self.plain:
-            return ref_fused_scatter_fold(
-                M.make(self.monoid, self.dtype), table, table_valid,
-                self.edge_src, self.edge_valid, self.edge_dst,
-                self.n_pad + 1, apply_weight=aw, w=w)
-        return fused_scatter_fold(
-            table, table_valid, self.edge_src, self.edge_valid,
-            self.edge_dst, self.n_pad + 1, monoid=self.monoid,
-            tiles=self.tiles, apply_weight=aw, w=w)
+        with kernel_scope(self._obs_scope):
+            if self.plain:
+                return ref_fused_scatter_fold(
+                    M.make(self.monoid, self.dtype), table, table_valid,
+                    self.edge_src, self.edge_valid, self.edge_dst,
+                    self.n_pad + 1, apply_weight=aw, w=w)
+            return fused_scatter_fold(
+                table, table_valid, self.edge_src, self.edge_valid,
+                self.edge_dst, self.n_pad + 1, monoid=self.monoid,
+                tiles=self.tiles, apply_weight=aw, w=w)
 
 
 class GatherKernel(_TileGeometry):
@@ -181,24 +202,26 @@ class GatherKernel(_TileGeometry):
         self.plain = plain
         self.ident = M.full((1, 1), M.identity_value(monoid_name, dtype),
                             dtype, self.device)
+        self._obs_scope = _scope_name("gather", plain, self.device)
 
     def __call__(self, edge_vals, edge_valid, part_active):
-        part_active = torch.as_tensor(part_active, device=self.device).to(
-            torch.bool)
-        args = (edge_vals, edge_valid, self.edge_dst_local,
-                self.tile_dst_part, self.tile_src_part, self.tile_first,
-                part_active)
-        if self.plain:
-            acc, touched = ref_segment_combine(*args, monoid=self.monoid,
-                                               **self.geometry())
-        else:
-            acc, touched = segment_combine(
-                *args, monoid=self.monoid, part_tile_off=self.part_tile_off,
-                **self.geometry())
-        acc = M.where(self.has_tiles, acc, self.ident)
-        touched = touched & self.has_tiles
-        flat = acc.shape[:-2] + (-1,)
-        return acc.reshape(flat), touched.reshape(flat)
+        with kernel_scope(self._obs_scope):
+            part_active = torch.as_tensor(part_active,
+                                          device=self.device).to(torch.bool)
+            args = (edge_vals, edge_valid, self.edge_dst_local,
+                    self.tile_dst_part, self.tile_src_part, self.tile_first,
+                    part_active)
+            if self.plain:
+                acc, touched = ref_segment_combine(
+                    *args, monoid=self.monoid, **self.geometry())
+            else:
+                acc, touched = segment_combine(
+                    *args, monoid=self.monoid,
+                    part_tile_off=self.part_tile_off, **self.geometry())
+            acc = M.where(self.has_tiles, acc, self.ident)
+            touched = touched & self.has_tiles
+            flat = acc.shape[:-2] + (-1,)
+            return acc.reshape(flat), touched.reshape(flat)
 
 
 class ScatterKernel:
@@ -225,6 +248,7 @@ class ScatterKernel:
             layout.png_src < layout.n_pad).to(self.device)
         self.png_tile_part = torch.from_numpy(layout.png_tile_part).to(
             self.device)
+        self._obs_scope = _scope_name("scatter", plain, self.device)
         self.pieces = None
         if not plain and self.device.type == "cuda":
             sms = torch.cuda.get_device_properties(
@@ -235,16 +259,17 @@ class ScatterKernel:
                 self.pieces = torch.from_numpy(off).to(self.device)
 
     def __call__(self, x_flat, active_flat):
-        grid = x_flat.shape[:-1] + (self.k, self.q)
-        x = x_flat.to(self.dtype).reshape(grid)
-        active = active_flat.to(torch.bool).reshape(grid)
-        args = (x, active, self.png_src_local, self.png_valid,
-                self.png_tile_part)
-        geo = dict(k=self.k, q=self.q, msg_tile=self.msg_tile,
-                   monoid=self.monoid)
-        if self.plain:
-            return ref_dc_gather(*args, **geo)
-        return dc_gather(*args, **geo, pieces=self.pieces)
+        with kernel_scope(self._obs_scope):
+            grid = x_flat.shape[:-1] + (self.k, self.q)
+            x = x_flat.to(self.dtype).reshape(grid)
+            active = active_flat.to(torch.bool).reshape(grid)
+            args = (x, active, self.png_src_local, self.png_valid,
+                    self.png_tile_part)
+            geo = dict(k=self.k, q=self.q, msg_tile=self.msg_tile,
+                       monoid=self.monoid)
+            if self.plain:
+                return ref_dc_gather(*args, **geo)
+            return dc_gather(*args, **geo, pieces=self.pieces)
 
 
 class SpmvKernel(_TileGeometry):
@@ -263,16 +288,19 @@ class SpmvKernel(_TileGeometry):
         self.edge_w = (torch.from_numpy(layout.edge_w).to(self.device)
                        if self.weighted and layout.edge_w is not None
                        else None)
+        self._obs_scope = _scope_name("spmv", plain, self.device)
 
     def __call__(self, x_flat):
-        args = (x_flat.reshape(self.k, self.q), self.edge_src_local,
-                self.edge_dst_local, self.edge_valid, self.edge_w,
-                self.tile_dst_part, self.tile_src_part, self.tile_first)
-        weighted = self.edge_w is not None
-        if self.plain:
-            y = ref_spmv_block(*args, weighted=weighted, **self.geometry())
-        else:
-            y = spmv_block(*args, weighted=weighted,
-                           part_tile_off=self.part_tile_off,
-                           **self.geometry())
-        return torch.where(self.has_tiles, y, 0.0).reshape(-1)
+        with kernel_scope(self._obs_scope):
+            args = (x_flat.reshape(self.k, self.q), self.edge_src_local,
+                    self.edge_dst_local, self.edge_valid, self.edge_w,
+                    self.tile_dst_part, self.tile_src_part, self.tile_first)
+            weighted = self.edge_w is not None
+            if self.plain:
+                y = ref_spmv_block(*args, weighted=weighted,
+                                   **self.geometry())
+            else:
+                y = spmv_block(*args, weighted=weighted,
+                               part_tile_off=self.part_tile_off,
+                               **self.geometry())
+            return torch.where(self.has_tiles, y, 0.0).reshape(-1)

@@ -30,7 +30,6 @@ The registry also carries two streams the plain metrics cannot express:
 from __future__ import annotations
 
 import contextlib
-import json
 import math
 import os
 import threading
@@ -142,12 +141,17 @@ class Histogram:
 
     def observe(self, v):
         v = float(v)
+        # _bucket, min() and max() written out: an engine observes once
+        # an iteration
+        b = 0 if v <= self.LO else 1 + int(math.floor(
+            math.log(v / self.LO) / self._log_growth + 1e-12))
         with self._lock:
             self.n += 1
             self.sum += v
-            self.min = min(self.min, v)
-            self.max = max(self.max, v)
-            b = self._bucket(v)
+            if v < self.min:
+                self.min = v
+            if v > self.max:
+                self.max = v
             self._counts[b] = self._counts.get(b, 0) + 1
 
     def reset(self):
@@ -239,15 +243,25 @@ class Registry:
     def __init__(self, enabled=None, sink=None, max_events: int = 65536):
         self.enabled = _env_enabled() if enabled is None else bool(enabled)
         self._metrics = {}            # (kind, name, labelkey) -> metric
+        # (kind, name, *labels.items()) as called -> metric: a hot caller
+        # (one engine iteration) skips the sorted label key
+        self._by_call = {}
         self._events = deque(maxlen=max_events)
         self._cost = []               # (mode, size, wall_s, extra) tuples
         self._lock = threading.Lock()
         self._sink_path = _env_sink() if sink is None else sink
-        self._sink_file = None
+        self._sink = None             # export.JsonlSink, opened on first use
         self._sink_lock = threading.Lock()
 
     # -- metric construction -------------------------------------------
     def _get(self, kind: str, name: str, labels: dict):
+        call = (kind, name, *labels.items())
+        try:
+            m = self._by_call.get(call)
+        except TypeError:             # an unhashable label value
+            call = m = None
+        if m is not None:
+            return m
         key = (kind, name, _label_key(labels))
         m = self._metrics.get(key)
         if m is None:
@@ -256,6 +270,8 @@ class Registry:
                 if m is None:
                     m = _KINDS[kind](name, labels)
                     self._metrics[key] = m
+        if call is not None:
+            self._by_call[call] = m
         return m
 
     def counter(self, name: str, **labels) -> Counter:
@@ -288,6 +304,10 @@ class Registry:
             return
         rec = {"event": event, "ts": time.time()}
         rec.update(fields)
+        self._emit(rec)
+
+    def _emit(self, rec: dict):
+        """Buffer and stream one event record, ``event`` and ``ts`` set."""
         self._events.append(rec)
         self._sink_write(rec)
 
@@ -342,6 +362,7 @@ class Registry:
         """Drop every metric, event, and cost sample (enabled/sink kept)."""
         with self._lock:
             self._metrics.clear()
+            self._by_call.clear()
             self._cost.clear()
         self._events.clear()
 
@@ -357,9 +378,9 @@ class Registry:
     def set_sink(self, path):
         """Redirect the streaming JSONL sink (None closes it)."""
         with self._sink_lock:
-            if self._sink_file is not None:
-                self._sink_file.close()
-                self._sink_file = None
+            if self._sink is not None:
+                self._sink.close()
+                self._sink = None
             self._sink_path = str(path) if path else None
 
     def _sink_write(self, rec: dict):
@@ -368,12 +389,11 @@ class Registry:
         with self._sink_lock:
             if self._sink_path is None:
                 return
-            if self._sink_file is None:
-                self._sink_file = open(self._sink_path, "a",
-                                       encoding="utf-8")
-            self._sink_file.write(json.dumps(rec, default=_json_default)
-                                  + "\n")
-            self._sink_file.flush()
+            if self._sink is None:
+                from .export import JsonlSink    # export imports this module
+                self._sink = JsonlSink(self._sink_path)
+            self._sink.emit(rec)
+            self._sink.flush()
 
     def close(self):
         self.set_sink(self._sink_path)        # closes the open handle

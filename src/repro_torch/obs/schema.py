@@ -10,10 +10,8 @@ field; ``as_event`` turns one into the dict the JSONL sink ships.
 ``EVENT_SCHEMA`` is the machine-checkable contract for every event type
 the reference emits: per event, the required fields and their types.
 Extra fields are always allowed (events are forward-extensible); missing or
-mistyped required fields are a schema violation.  The port's serving tier
-records ``serve_batch``, ``serve_query``, ``seeded_batch``,
-``cache_warm``, ``cache_clear``, ``layout_swap`` and ``epoch_swap``; the
-engine events wait for the engines' telemetry.
+mistyped required fields are a schema violation.  The port records every
+event of it but ``bench_row`` (benchmarks are not ported).
 """
 from __future__ import annotations
 
@@ -47,7 +45,9 @@ class BatchIterStats:
 
 
 def as_event(stats) -> dict:
-    return dataclasses.asdict(stats)
+    """The record's fields as a dict: ``dataclasses.asdict`` of these flat
+    records, without its deep copy (an engine records one a step)."""
+    return dict(vars(stats))
 
 
 # ----------------------------------------------------------------------

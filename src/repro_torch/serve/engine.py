@@ -28,15 +28,16 @@ Counterpart of the graph half of :mod:`repro.serve.engine`
 
 Invalidation is the reference's: entries are keyed by the layout's content
 tag; :meth:`GraphQueryServer.clear_cache` is the only wholesale
-invalidation; :meth:`GraphQueryServer.swap_layout` starts a new epoch and
-evicts nothing.  Cached results are returned by reference and must be
-treated as read-only.
+invalidation; :meth:`GraphQueryServer.swap_layout` starts a new epoch, and
+with the graph delta that produced the new layout (``delta=``) evicts the
+old tag's entries but for the landmarks it can migrate
+(:meth:`GraphQueryServer._scoped_invalidate`).  Cached results are returned
+by reference and must be treated as read-only.
 
 The server runs on ``device`` (a CUDA device by default, which must exist;
 ``device="cpu"`` runs the kernels' plain versions).  Not ported yet, and
 raising :class:`NotImplementedError`: distributed serving (``sharded`` /
-``mesh``, ROADMAP queue 1 step 8) and delta swaps
-(``swap_layout(delta=...)``, step 6: ``DeltaBuffer`` is not ported).
+``mesh``, ROADMAP queue 1 step 8).
 """
 from __future__ import annotations
 
@@ -241,23 +242,74 @@ class GraphQueryServer:
         if obs.enabled():
             obs.event("cache_clear", layout=self._layout_tag)
 
+    def _scoped_invalidate(self, old_layout, old_tag, new_layout, new_tag,
+                           delta):
+        """Delta-swap garbage collection, scoped by per-partition content
+        tags.  Returns ``(evicted, migrated, changed_parts)``.
+
+        The old tag's ``res|`` entries are always evicted (an exact global
+        answer is stale under any edge edit).  A ``sem|`` landmark entry is
+        judged by the partitions it stores: if the delta is insertion-only
+        and none of them changed tag, the entry is *migrated*, re-keyed
+        under the new tag, where its state is still a pointwise upper bound
+        of every new fixpoint (insertions only lower min-monoid distances),
+        which is what a seed needs.  Everything else under
+        ``sem|<old>|`` is evicted."""
+        old_ptags = cache_lib.partition_tags(old_layout)
+        new_ptags = cache_lib.partition_tags(new_layout)
+        changed = {p for p, (a, b) in enumerate(zip(old_ptags, new_ptags))
+                   if a != b}
+        evicted = cache_lib.evict_prefix(self.cache, f"res|{old_tag}|")
+        migratable = delta.insertions_only
+        sem_prefix = f"sem|{old_tag}|"
+        migrated = 0
+        for key in list(self.cache.keys()):
+            if not isinstance(key, str) or not key.startswith(sem_prefix):
+                continue
+            entry = self.cache.get(key) if migratable else None
+            if entry is not None:
+                parts = set(np.asarray(entry.get("parts", ())).tolist())
+                if not (parts & changed):
+                    new_key = f"sem|{new_tag}|" + key[len(sem_prefix):]
+                    self.cache.put(new_key, entry)
+                    self.cache.evict(key)
+                    migrated += 1
+                    continue
+            if self.cache.evict(key):
+                evicted += 1
+        return evicted, migrated, changed
+
     def swap_layout(self, layout, sharded=None, mesh=None, delta=None):
         """Re-point the server at a new resident layout (a new epoch).
 
         Queued queries drain on the old layout first; then the epoch bumps,
         the shared engines are dropped, and the warmer statistics and
-        old-tag metric series reset.  Nothing is evicted: entries are keyed
-        by content tag, so another layout's entries are merely invisible
-        until it returns.  ``delta=`` (scoped garbage collection after a
-        graph delta) and ``sharded`` / ``mesh`` are not ported yet."""
-        if delta is not None:
-            raise _not_ported("swap_layout(delta=...) (DeltaBuffer)", "6")
+        old-tag metric series reset.  With ``delta=None`` nothing is
+        evicted: entries are keyed by content tag, so another layout's
+        entries are merely invisible until it returns.  With ``delta=`` the
+        :class:`repro_torch.graph.delta.DeltaBuffer` that produced
+        ``layout`` (usually through
+        :func:`repro_torch.graph.delta.apply_delta`), the old tag's
+        superseded entries are garbage-collected and clean-partition
+        landmarks of an insertion-only delta migrate to the new tag
+        (:meth:`_scoped_invalidate`).  ``sharded`` / ``mesh`` are not
+        ported yet."""
         if sharded is not None or mesh is not None:
             raise _not_ported("distributed serving (sharded, mesh)", "8")
+        if delta is not None and (delta.k != layout.k
+                                  or delta.q != layout.q
+                                  or delta.n != layout.n):
+            raise ValueError("delta partitioning does not match the new "
+                             "layout (deltas never change k/q/n)")
         if self.queue:
             self.run()                 # drain epoch N on the old layout
-        old_tag = self._layout_tag
+        old_layout, old_tag = self.layout, self._layout_tag
         new_tag = cache_lib.layout_tag(layout)
+        evicted = migrated = 0
+        changed = set()
+        if delta is not None:
+            evicted, migrated, changed = self._scoped_invalidate(
+                old_layout, old_tag, layout, new_tag, delta)
         self._engines = {}
         if self.warmer is not None:
             self.warmer.reset()
@@ -269,8 +321,9 @@ class GraphQueryServer:
         if obs.enabled():
             obs.event("layout_swap", old=old_tag, new=new_tag)
             obs.event("epoch_swap", old=old_tag, new=new_tag,
-                      epoch=self.epoch, delta=False, changed_parts=0,
-                      evicted=0, migrated=0)
+                      epoch=self.epoch, delta=delta is not None,
+                      changed_parts=len(changed), evicted=evicted,
+                      migrated=migrated)
 
     # ---- batching ------------------------------------------------------
     def _batch_sig(self, q: GraphQuery):

@@ -1135,3 +1135,126 @@ def test_server_on_the_card_matches_the_cpu(dev):
                                            rtol=0, atol=1e-6)
             else:
                 assert np.array_equal(done["cuda"][i][key], value), (i, key)
+
+
+def _confined_inserts(g, L, count, parts, seed, symmetric=False):
+    """An insertion-only delta of ``count`` random edges (both directions
+    when ``symmetric``) with both endpoints in the first ``parts``
+    partitions."""
+    rng = np.random.default_rng(seed)
+    hi = min(parts * L.q, L.n)
+    d = rt.DeltaBuffer.for_layout(L)
+    u, v = rng.integers(0, hi, count), rng.integers(0, hi, count)
+    w = (rng.random(count) + 0.05).astype(np.float32)
+    d.insert(u, v, w)
+    if symmetric:
+        d.insert(v, u, w)
+    return d
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_resume_on_the_card_is_bit_exact_with_cold(dev, monkeypatch, fused):
+    """BFS (the packed seeded program), SSSP and SSSP with parents resumed
+    through ``Engine.run(resume_from=, touched=)`` after an insertion-only
+    delta, and CC through ``resume_labels=``, bit-exact with cold runs on
+    the new layout, on each DC lowering."""
+    from repro_torch.apps.bfs import bfs_seeded_pack
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    g = rmat(10, 8, seed=5, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    d = _confined_inserts(g, L, 300, 2, seed=7)
+    L2 = rt.apply_delta(L, d)
+    src = int(np.argmax(g.out_degrees()))
+    n_pad = L.n_pad
+    vid = torch.arange(n_pad, dtype=torch.int32, device=dev).view(
+        torch.uint32)
+    dist = torch.full((n_pad,), float("inf"), device=dev)
+    dist[src] = 0.0
+    parent = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    parent[src] = src
+    level = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    level[src] = 0
+    starts = {
+        "bfs_seeded": (rt.apps.bfs_seeded_program(), {
+            "best": bfs_seeded_pack(level, parent.clamp(min=src)),
+            "vid": vid}),
+        "sssp": (rt.apps.sssp_program(), {"dist": dist}),
+        "sssp_parents": (rt.apps.sssp_parents_program(), {
+            "dist": dist, "parent": parent, "vid": vid})}
+    frontier = np.zeros(n_pad, bool)
+    frontier[src] = True
+    for name, (prog, state0) in starts.items():
+        old, _, _ = rt.Engine(L, prog).run(dict(state0), frontier)
+        eng = rt.Engine(L2, prog)
+        assert eng.fused == (fused == "1")
+        warm, _, _ = eng.run(resume_from=old, touched=d)
+        cold, _, _ = eng.run(dict(state0), frontier)
+        for key in state0:
+            assert torch.equal(warm[key].view(torch.uint8),
+                               cold[key].view(torch.uint8)), (name, key)
+    S = build_layout(symmetrize(g), k=8, edge_tile=64, msg_tile=32)
+    ds = _confined_inserts(g, S, 300, 2, seed=8, symmetric=True)
+    S2 = rt.apply_delta(S, ds)
+    old = rt.connected_components(S)["label"]
+    warm = rt.connected_components(S2, resume_labels=old, touched=ds)
+    cold = rt.connected_components(S2)
+    assert np.array_equal(warm["label"], cold["label"])
+    assert len(warm["stats"]) <= len(cold["stats"])
+
+
+def _scope_kernel_names(path, name):
+    """The device kernel records a Chrome trace attributes to scope
+    ``name``: those whose launch record (same correlation id) lies inside
+    one of the scope's host ranges, or that a ``gpu_user_annotation`` of
+    the scope holds."""
+    import json
+    events = json.loads(open(path).read())["traceEvents"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    spans = {cat: [e for e in events if e.get("name") == name
+                   and e.get("cat") == cat]
+             for cat in ("user_annotation", "gpu_user_annotation")}
+
+    def inside(t, cat):
+        return t is not None and any(s["ts"] <= t <= s["ts"] + s["dur"]
+                                     for s in spans[cat])
+
+    return [k["name"] for k in events if k.get("cat") == "kernel" and (
+        inside(launch_ts.get(k.get("args", {}).get("correlation")),
+               "user_annotation") or inside(k["ts"], "gpu_user_annotation"))]
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_trace_holds_kernel_scopes_and_device_records(dev, monkeypatch,
+                                                      tmp_path, fused):
+    """One PageRank iteration under ``obs.trace``: each ``ppm.*.cuda``
+    scope of its lowering holds its kernel's device record; a run with no
+    capture enters no scope."""
+    from repro_torch import obs
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    L = build_layout(rmat(10, 8, seed=5), k=8, edge_tile=64, msg_tile=32)
+    eng = rt.Engine(L, rt.apps.pagerank_program(L.n), mode="dc")
+    state = {"pr": torch.full((L.n_pad,), 1.0 / L.n, device=dev),
+             "deg": torch.from_numpy(L.deg.astype(np.float32)).to(dev)}
+    frontier = np.zeros(L.n_pad, bool)
+    frontier[:L.n] = True
+    eng.run(dict(state), frontier, max_iters=1, until_empty=False)
+    path = tmp_path / "trace.json"
+    with obs.override_enabled(True):
+        with obs.trace(path):
+            eng.run(dict(state), frontier, max_iters=1, until_empty=False)
+            torch.cuda.synchronize()
+    scopes = ({"ppm.fused_dc.cuda": "FusedEdges"} if fused == "1" else
+              {"ppm.scatter.cuda": "_kernel",
+               "ppm.gather.cuda": "CombineEdges"})
+    for name, fragment in scopes.items():
+        assert any(fragment in k for k in _scope_kernel_names(path, name)), \
+            name
+    entered = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or real(name))
+    with obs.override_enabled(True):
+        eng.run(dict(state), frontier, max_iters=1, until_empty=False)
+    assert entered == []

@@ -32,7 +32,8 @@ def _submodules():
 def test_import_leaves_jax_unloaded():
     mods = _submodules()
     assert {"repro_torch.core.engine", "repro_torch.backend.tuning",
-            "repro_torch.kernels.segment_combine"} <= set(mods)
+            "repro_torch.kernels.segment_combine", "repro_torch.graph.delta",
+            "repro_torch.obs.export", "repro_torch.obs.tracing"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {['repro_torch'] + mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -22,6 +22,7 @@ from repro.serve import GraphQueryServer as RefServer
 from repro.serve import ServeConfig as RefConfig
 from repro_torch import obs
 from repro_torch.core.engine import Engine
+from repro_torch.graph import DeltaBuffer
 from repro_torch.interop import layout_from_reference
 from repro_torch.serve import GraphQuery, GraphQueryServer, ServeConfig
 from torch_reference_shims import same_bits, x64  # noqa: F401
@@ -186,8 +187,9 @@ def test_paths_not_ported_raise(layouts):
         GraphQueryServer(TL, ServeConfig(sharded=object(), mesh=object()),
                          device="cpu")
     srv = GraphQueryServer(TL, ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="step 6"):
-        srv.swap_layout(TL, delta=object())
+    # delta swaps are ported: a delta of another partitioning is refused
+    with pytest.raises(ValueError, match="delta partitioning does not match"):
+        srv.swap_layout(TL, delta=DeltaBuffer(k=TL.k + 1, q=TL.q, n=TL.n))
     with pytest.raises(NotImplementedError, match="step 8"):
         srv.swap_layout(TL, sharded=object(), mesh=object())
     assert srv.epoch == 0
