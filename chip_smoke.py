@@ -125,13 +125,34 @@ Phases, in order; each prints lines that start with its name:
            vertex, in hybrid and in dc mode on each DC lowering, against the
            same app through the plain versions on the card within L1 1e-5,
            with both runs' iteration counts.
+  dist     the multi-device engine on one NCCL rank (world size 1: NCCL
+           refuses two ranks on one card, ``tools/probe_nccl_ranks.py``):
+           ``shard_layout`` of both layouts timed beside ``build_layout``,
+           ``DistEngine`` set-up split as ``engine_setup`` is; BFS, SSSP
+           and CC in modes dc, sc, hybrid and hybrid_pp bit-exact with the
+           single-device engine, PageRank (10 iterations, ``run`` and
+           ``run_fused``) within L1 1e-6 and on the bf16 wire within the
+           bound its 2**-9 rounding gives; ``bfs_multi`` and
+           ``sssp_parents_multi`` over the batched phase's 16 sources, each
+           lane bit-exact with a sequential dist run; the serve phase's
+           first round again from a sharded ``GraphQueryServer``, each
+           answer the unsharded server's (or, for a lane it seeded, the cold
+           run's); the layout-free ``fused_dc`` (``csrc/fused_stream.cu``)
+           at the dist DC step's shapes, every monoid and edge function
+           bit-exact with its plain version, f32 add and the int64 min with
+           ``add_weight_to_key`` timed four ways beside their bytes bound
+           and ``index_add_`` / ``scatter_reduce_`` of pre-gathered values;
+           the dist DC step by part (scatter, exchange, fold) beside the
+           single-device fused DC step, and one SC step in its dense and
+           ragged forms (equal results), with the wire bytes.
   tuning   ``autotune`` over the card's four tile geometries on the same
            graph, the sweep's times and winner, and ``build_layout`` with
            unset tiles reading the winner back from the cache.
 
 Launch counts are set to 0 before each path (fused apps, composed apps,
 each batched, payload and local run, the serve stream, each resumed and
-symmetrized delta run and the post-swap round, tuning) and read after it.  Then one JSON line with the kernels' numbers,
+symmetrized delta run and the post-swap round, the dist phase's runs,
+tuning) and read after it.  Then one JSON line with the kernels' numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device.  The full
@@ -141,6 +162,7 @@ also written to ``--report`` (default ``results/chip_smoke.json``).
 import argparse
 import collections
 import dataclasses
+import datetime
 import itertools
 import json
 import os
@@ -1307,7 +1329,7 @@ def main() -> int:
     # around the fused kernel's per-edge check on the card, less the copy it
     # makes of the layout's edge_dst.  The rest is host array work and
     # Python.
-    def engine_setup(fused: bool, name: str, program) -> dict:
+    def engine_setup(fused: bool, name: str, make) -> dict:
         spent = {"host_tile_check_s": 0.0, "card_edge_check_s": 0.0,
                  "copies_s": 0.0, "copied_bytes": 0}
         to = torch.Tensor.to
@@ -1342,7 +1364,7 @@ def main() -> int:
         for fn, key in checks.items():
             setattr(ops, fn, phase(saved[fn], key))
         try:
-            eng, total = timed(lambda: rt.Engine(L, program))
+            eng, total = timed(make)
         finally:
             torch.Tensor.to = to
             for fn, f in saved.items():
@@ -1355,7 +1377,8 @@ def main() -> int:
                 - spent["card_edge_check_s"] - spent["copies_s"]}
 
     report["engine_setup"] = {
-        f"{name}_{path}": engine_setup(path == "fused", name, program)
+        f"{name}_{path}": engine_setup(path == "fused", name,
+                                       lambda p=program: rt.Engine(L, p))
         for path in ("fused", "composed")
         for name, program in (("bfs", rt.apps.bfs_program()),
                               ("sssp", rt.apps.sssp_program()))}
@@ -1809,6 +1832,9 @@ def main() -> int:
         "launches": {kk: v for kk, v in serve_launches.items() if v},
         "int64_lane_steps": serve_wide_lanes}
     say("serve", **report["serve"])
+    # the first round's queries and answers, which the dist phase serves
+    # again from a sharded server
+    serve_round1 = {q: answers[q] for q in range(36)}
     del answers, events
 
     # ---------------- delta ----------------
@@ -2280,6 +2306,339 @@ def main() -> int:
             os.environ.pop(ENV_FUSED, None)
     report["local"] = local
 
+    # ---------------- dist ----------------
+    def dist_phase() -> dict:
+        """The multi-device engine on one rank of a process group of world
+        size 1 (the card's machine holds one card): the phase's record."""
+        import torch.distributed as tdist
+
+        from repro_torch.dist import BACKENDS, make_mesh
+        from repro_torch.dist import engine as de
+        from repro_torch.graph.shard import shard_layout
+        from repro_torch.serve import ServeConfig
+
+        rec = {}
+        store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        tdist.init_process_group(
+            BACKENDS[dev.type], init_method=f"file://{store}/store",
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh(dev.type)
+
+            # ---- set-up: sharding beside build_layout, engine set-up split
+            t = time.perf_counter()
+            SL = shard_layout(L, 1)
+            shard_s = time.perf_counter() - t
+            t = time.perf_counter()
+            SS = shard_layout(S, 1)
+            shard_sym_s = time.perf_counter() - t
+            rec["setup"] = {
+                "shard_layout_s": shard_s, "shard_layout_sym_s": shard_sym_s,
+                "build_layout_s": report["graph"]["layout_s"],
+                "sym_and_build_layout_s": report["graph"]["sym_and_layout_s"],
+                "S": SL.S, "ne_d": SL.ne_d, "ne_s": SL.ne_s,
+                "cap_pair": SL.cap_pair, "S_sym": SS.S, "ne_d_sym": SS.ne_d,
+                "engine_setup": {
+                    name: engine_setup(True, name, lambda p=program:
+                                         de.DistEngine(SL, p, mesh))
+                    for name, program in (("bfs", rt.apps.bfs_program()),
+                                          ("sssp", rt.apps.sssp_program()))}}
+            say("dist", **rec["setup"])
+
+            # ---- the dist main path: counts from 0 before it, read after it;
+            # fused_stream launches split by table width (4 bytes, int64)
+            _build.reset_launch_counts()
+            flat = {"4byte": 0, "int64": 0}
+
+            def run(fn, width="4byte"):
+                c0 = counts()
+                out, wall = timed(fn)
+                launched = {k: v - c0[k] for k, v in counts().items()
+                            if v != c0[k]}
+                if width is not None:
+                    flat[width] += launched.get("fused_stream", 0)
+                return out, wall, launched
+
+            single = {"bfs": bfs_res, "sssp": sssp_res, "cc": cc_res}
+            calls = {"bfs": (lambda e: rt.bfs(L, src, engine=e), SL,
+                             rt.apps.bfs_program, ("level", "parent")),
+                     "sssp": (lambda e: rt.sssp(L, src, engine=e), SL,
+                              rt.apps.sssp_program, ("dist",)),
+                     "cc": (lambda e: rt.connected_components(S, engine=e), SS,
+                            rt.apps.cc_program, ("label",))}
+            apps = rec["apps"] = {}
+            for mode in de.MODES:
+                for name, (fn, sl, program, keys) in calls.items():
+                    eng = de.DistEngine(sl, program(), mesh, mode=mode)
+                    res, wall, launched = run(lambda: fn(eng))
+                    for key in keys:
+                        check(np.array_equal(res[key], single[name][key]),
+                              f"dist {name} ({mode}): {key} differs from the "
+                              "single-device engine")
+                    stats = res["stats"]
+                    # a DC iteration is one fused_stream launch, an SC one
+                    # segment_fold launch, a hybrid_pp one two segment_fold
+                    # launches (its DC and SC streams, composed)
+                    it_modes = [s["mode"] for s in stats]
+                    want = {"fused_stream": it_modes.count("dc"),
+                            "segment_fold": it_modes.count("sc")
+                            + 2 * it_modes.count("hybrid_pp")}
+                    got = {kk: launched.get(kk, 0) for kk in want}
+                    check(got == want, f"dist {name} ({mode}): launched "
+                          f"{got}, not {want}, in {len(stats)} iterations")
+                    apps[f"{name}_{mode}"] = {
+                        "wall_s": wall, "iterations": len(stats),
+                        "modes": [s["mode"] for s in stats],
+                        "iter_wall_s": [s["wall_s"] for s in stats],
+                        "wire_bytes": [s["wire_bytes"] for s in stats],
+                        "launches": launched}
+                    say("dist", app=name, mode=mode, **apps[f"{name}_{mode}"])
+                    del eng
+
+            # PageRank in dc for 10 iterations (run and run_fused), and on the
+            # bf16 wire
+            d, iters = 0.85, 10
+            pr_eng = de.DistEngine(SL, rt.apps.pagerank_program(L.n), mesh,
+                                   mode="dc")
+            pr_run, wall_run, _ = run(lambda: rt.pagerank(
+                L, iters=iters, engine=pr_eng, fused=False))
+            pr_fused, wall_fused, _ = run(lambda: rt.pagerank(
+                L, iters=iters, engine=pr_eng))
+            want = pr_res["pr"].astype(np.float64)
+            l1 = {name: float(np.abs(r["pr"].astype(np.float64) - want).sum())
+                  for name, r in (("run", pr_run), ("run_fused", pr_fused))}
+            check(max(l1.values()) <= 1e-6, f"dist pagerank L1 {l1} from the "
+                  "single-device engine > 1e-6")
+            bf16_eng = de.DistEngine(SL, rt.apps.pagerank_program(L.n), mesh,
+                                     mode="dc", wire_bf16=True)
+            pr_bf16, wall_bf16, _ = run(lambda: rt.pagerank(
+                L, iters=iters, engine=bf16_eng, fused=False))
+            f32 = pr_run["pr"].astype(np.float64)
+            # each message rounds to bf16 with relative error <= 2**-9; an
+            # iteration sends d * ||pr||_1 of mass through a column-stochastic
+            # step, which does not grow an L1 error: after t iterations
+            # ||pr_bf16 - pr_f32||_1 <= 2**-9 * ||pr||_1 * sum_{j<=t} d**j
+            bf16_bound = 2.0 ** -9 * f32.sum() * d * (1 - d ** iters) / (1 - d)
+            bf16_err = float(np.abs(pr_bf16["pr"].astype(np.float64)
+                                    - f32).sum())
+            check(bf16_err <= bf16_bound + 1e-6, f"dist pagerank on the bf16 "
+                  f"wire: L1 {bf16_err} from f32 > {bf16_bound}")
+            rec["pagerank"] = {
+                "l1_vs_single_device": l1, "run_s": wall_run,
+                "run_fused_s": wall_fused, "bf16_run_s": wall_bf16,
+                "bf16_l1_vs_f32": bf16_err, "bf16_l1_bound": bf16_bound,
+                "iter_wall_s": [s["wall_s"] for s in pr_run["stats"]],
+                "wire_bytes_f32": pr_eng.wire_bytes_per_step(),
+                "wire_bytes_bf16": bf16_eng.wire_bytes_per_step()}
+            say("dist", **rec["pagerank"])
+            del bf16_eng, pr_bf16
+
+            # ---- batched: each lane against a sequential dist run in dc
+            lanes = [int(v) for v in sources]
+            batched = rec["batched"] = {}
+            for name, multi, alone, program, keys, width in (
+                    ("bfs", rt.bfs_multi, rt.bfs, rt.apps.bfs_program,
+                     ("level", "parent"), "4byte"),
+                    ("sssp_parents", rt.sssp_parents_multi,
+                     rt.sssp_with_parents, rt.apps.sssp_parents_program,
+                     ("dist", "parent"), "int64")):
+                eng = de.DistEngine(SL, program(), mesh, mode="dc")
+                res, wall, launched = run(
+                    lambda: multi(L, lanes, engine=eng), width)
+                seq, seq_s, seq_launched = run(
+                    lambda: [alone(L, v, engine=eng) for v in lanes], width)
+                for i in range(len(lanes)):
+                    for key in keys:
+                        check(np.array_equal(res[key][i], seq[i][key]),
+                              f"dist {name}_multi lane {i}: {key} differs "
+                              "from the sequential dist run")
+                steps = len(res["stats"])
+                batched[name] = {
+                    "wall_s": wall, "sequential_s": seq_s, "steps": steps,
+                    "lanes_per_step": [s.lanes_active for s in res["stats"]],
+                    "launches": launched, "sequential_launches": seq_launched}
+                say("dist", batched=name, **batched[name])
+                del eng, res, seq
+            check(np.array_equal(
+                rt.sssp_with_parents(L, src, engine=de.DistEngine(
+                    SL, rt.apps.sssp_parents_program(), mesh))["dist"],
+                sssp_res["dist"]), "dist sssp_with_parents differs from sssp")
+            rec["launches_by_width"] = dict(flat)
+
+            # ---- serving: the serve phase's first round on a sharded server
+            srv = GraphQueryServer(S, ServeConfig(sharded=SS, mesh=mesh),
+                                   device=dev)
+            for qid, q in serve_round1.items():
+                srv.submit(GraphQuery(qid, q.app, dict(q.params)))
+            served, wall, launched = run(lambda: {q.qid: q for q in srv.run()},
+                                         None)
+            keys = {"bfs": ("level", "parent"), "sssp": ("dist",),
+                    "sssp_parents": ("dist", "parent")}
+            cold = {}
+            for qid, q in serve_round1.items():
+                s = q.params["source"]
+                for key in keys[q.app]:
+                    got = served[qid].result[key]
+                    if np.array_equal(got, q.result[key]):
+                        continue
+                    # the unsharded server answered from a landmark-seeded lane
+                    # (f32 rounding below the cold run): the sharded server,
+                    # which never seeds, must give the cold answer
+                    check((q.app, s) in seeded_sources,
+                          f"dist serve: {q.app} from {s}: {key} differs from "
+                          "the unsharded server")
+                    if (q.app, s) not in cold:
+                        cold[(q.app, s)] = rt.sssp(S, s, device=dev)
+                    check(np.array_equal(got, cold[(q.app, s)][key]),
+                          f"dist serve: {q.app} from {s}: {key} differs from "
+                          "the cold run")
+            check(srv.semantic_hits == 0, "dist serve: a sharded lane seeded")
+            check(all(type(e).__name__ == "DistEngine"
+                      for e in srv._engines.values()),
+                  "dist serve: a shared engine is not a DistEngine")
+            rec["serve"] = {"queries": len(serve_round1), "wall_s": wall,
+                            "answers_from_cold_run": len(cold),
+                            "engines": sorted(srv._engines),
+                            "launches": launched}
+            say("dist", serve=rec["serve"])
+            del srv, served, cold
+
+            # ---- the layout-free fused_dc regime at the dist DC step's
+            # shapes: the received bin table (D*S + 1 slots) gathered through
+            # in_msg_slot and folded into nv + 1 segments
+            A = pr_eng.arrays
+            slot, ev, dstl = A["in_msg_slot"], A["in_valid"], A["in_dst_local"]
+            m, ns, ne = SL.D * SL.S + 1, SL.nv + 1, SL.ne_d
+            err = {"4byte": 0.0, "int64": 0.0}
+            cases = [(mo, dt, None) for mo in MONOIDS
+                     for dt in (torch.float32, torch.int32, torch.uint32)]
+            cases += [("min", torch.float32, add_weight),
+                      ("min_with_payload", torch.int64, None),
+                      ("min_with_payload", torch.int64, add_weight_to_key)]
+            for monoid, dtype, fn in cases:
+                table = (packed(m) if dtype == torch.int64
+                         else payload(m, dtype))
+                tvalid = torch.rand(m, device=dev) < 0.5
+                w = A["in_w"] if fn is not None else None
+                width = "int64" if dtype == torch.int64 else "4byte"
+                err[width] = max(err[width], max_abs_err(
+                    fused_scatter_fold(table, tvalid, slot, ev, dstl, ns,
+                                       monoid=monoid, apply_weight=fn, w=w),
+                    ref_fused_scatter_fold(M.make(monoid, dtype), table,
+                                           tvalid, slot, ev, dstl, ns,
+                                           apply_weight=fn, w=w),
+                    f"fused_dc[flat] {monoid} {dtype}"
+                    + (f" {fn.__name__}" if fn else "")))
+            live = torch.ones(m, dtype=torch.bool, device=dev)
+            slot64 = slot.to(torch.int64)
+            rows = rec["kernels"] = {}
+            for name, monoid, dtype, fn, nbytes in (
+                    ("fused_dc[flat]", "add", torch.float32, None,
+                     ne * (4 + 4 + 1) + m * (4 + 1) + ns * (4 + 1)),
+                    ("fused_dc[flat,int64]", "min_with_payload", torch.int64,
+                     add_weight_to_key,
+                     ne * (4 + 4 + 1 + 4) + m * (8 + 1) + ns * (8 + 1))):
+                table = (packed(m) if dtype == torch.int64
+                         else payload(m, dtype))
+                w = A["in_w"] if fn is not None else None
+                mono = M.make(monoid, dtype)
+                # the yardstick folds the values the kernel folds, gathered
+                # (and weighted) beforehand, untimed: index_add_ for add,
+                # scatter_reduce_(amin) for the int64 min
+                vals = table.index_select(0, slot64)
+                if fn is not None:
+                    vals = fn(vals, w)
+                vals = torch.where(ev, vals, mono.identity)
+                dst64 = torch.where(ev, dstl, ns - 1).to(torch.int64)
+                acc = M.full((ns,), mono.identity, dtype, dev)
+                library = ((lambda: acc.index_add_(0, dst64, vals))
+                           if monoid == "add" else
+                           (lambda: acc.scatter_reduce_(0, dst64, vals, "amin",
+                                                        include_self=True)))
+                width = "int64" if dtype == torch.int64 else "4byte"
+                rows[name] = {
+                    "case": f"{monoid} {dtype}" + (f" {fn.__name__}" if fn
+                                                   else ""),
+                    "shape": {"table": m, "edges": ne, "num_segments": ns},
+                    **kernel_times(lambda: fused_scatter_fold(
+                        table, live, slot, ev, dstl, ns, monoid=monoid,
+                        apply_weight=fn, w=w), 20),
+                    "plain_ms": median_ms(lambda: ref_fused_scatter_fold(
+                        mono, table, live, slot, ev, dstl, ns, apply_weight=fn,
+                        w=w), 3),
+                    "library_ms": median_ms(library, 20),
+                    "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                    "max_abs_err": err[width], "launches": flat[width]}
+                say("dist", kernel=name, **rows[name])
+                del vals, dst64, acc, table
+
+            # ---- the dist DC step by part, beside the single-device fused DC
+            # step, at PageRank's step (every vertex of [0, n) live)
+            prog, nv = pr_eng.program, SL.nv
+            state = {"pr": torch.full((nv,), 1.0 / L.n, device=dev),
+                     "deg": torch.from_numpy(L.deg.astype(np.float32)).to(dev)}
+            act = torch.zeros(nv, dtype=torch.bool, device=dev)
+            act[:L.n] = True
+            msgs = prog.scatter_fn(state)
+            out_vals, flag = de._bins_out(prog, msgs, act, A, torch.float32)
+            rv, rf = de._bin_table(out_vals, flag, 0.0, mesh, 0,
+                                   wire_bitmap=True)
+            fold, fused = de._resolve_fold(prog), de._resolve_fused(prog)
+            eng1 = rt.Engine(L, rt.apps.pagerank_program(L.n), mode="dc",
+                             device=dev)
+            all_dc = np.ones(L.k, bool)
+            steps = rec["steps"] = {"dc_ms": {
+                "scatter": median_ms(lambda: de._bins_out(
+                    prog, msgs, act, A, torch.float32), 10),
+                "exchange": median_ms(lambda: de._bin_table(
+                    out_vals, flag, 0.0, mesh, 0, wire_bitmap=True), 10),
+                "fold": median_ms(lambda: de._gather_bins(
+                    prog, pr_eng.meta, rv, rf, A, fold, fused, False), 10),
+                "whole_step": median_ms(lambda: pr_eng._dc(
+                    state, act, A, 0), 10),
+                "single_device_fused_step": median_ms(lambda: eng1.step(
+                    state, act, all_dc, 0), 10)},
+                "dc_wire_bytes": pr_eng.wire_bytes_per_step()}
+            del eng1, rv, rf, out_vals, flag
+
+            # one SC step in each form, from BFS's second frontier (the
+            # source's out-neighbours); the dense form moves D * cap_pair slots
+            beng = de.DistEngine(SL, rt.apps.bfs_program(), mesh, mode="sc")
+            bstate = {"parent": torch.full((nv,), -1, dtype=torch.int32,
+                                           device=dev),
+                      "level": torch.full((nv,), -1, dtype=torch.int32,
+                                          device=dev),
+                      "vid": torch.arange(nv, dtype=torch.int32,
+                                          device=dev).view(torch.uint32)}
+            front = torch.zeros(nv, dtype=torch.bool, device=dev)
+            front[torch.from_numpy(g.indices[g.indptr[src]:g.indptr[src + 1]]
+                                   .astype(np.int64)).to(dev)] = True
+            e_act = int((front * beng.deg).sum())
+            sc = {}
+            for ragged in (False, True):
+                step = de.build_sc_step(beng.program, beng.meta, mesh,
+                                        ragged=ragged)
+                sc[ragged] = step(bstate, front, beng.arrays, 1)
+                steps[f"sc_{'ragged' if ragged else 'dense'}_ms"] = median_ms(
+                    lambda: step(bstate, front, beng.arrays, 1), 10)
+            check(torch.equal(sc[False][1], sc[True][1]) and all(
+                torch.equal(sc[False][0][key], sc[True][0][key])
+                for key in bstate),
+                "dist: the dense and ragged SC steps differ")
+            steps.update(sc_active_vertices=int(front.sum()),
+                         sc_active_edges=e_act,
+                         sc_wire_bytes=int(beng._sc_per_edge * e_act),
+                         sc_dense_slots=SL.D * SL.cap_pair)
+            say("dist", steps=steps)
+            del beng, sc, pr_eng
+        finally:
+            tdist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+        return rec
+
+    report["dist"] = dist_phase()
+    del serve_round1
+
     # ---------------- tuning ----------------
     tdir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
     t = time.perf_counter()
@@ -2409,7 +2768,11 @@ def main() -> int:
                    "segment_combine.py:122",
                    payload_launches["segment_combine_lanes"]),
     ]
-    for entry in kernels[-7:]:
+    # the layout-free regime, launched by the dist phase's main path
+    kernels += [row(name, "fused_stream.cu", "fused_step.py:192",
+                    rec["launches"], rec["max_abs_err"], rec, rec["bound_ms"])
+                for name, rec in report["dist"]["kernels"].items()]
+    for entry in kernels[-9:]:
         check(entry["launches"] > 0, f"kernel {entry['name']} was not "
               "launched by its path")
     report["kernels"] = kernels

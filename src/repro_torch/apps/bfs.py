@@ -62,7 +62,11 @@ def bfs_multi(layout, sources, engine: Engine = None, max_iters: int = None,
               device="cuda"):
     """Batched multi-source BFS: one :meth:`Engine.run_batched` call answers
     ``len(sources)`` queries, bit-exact with per-source :func:`bfs` calls.
-    Row ``i`` of every ``[B, n]`` result array belongs to ``sources[i]``."""
+    Row ``i`` of every ``[B, n]`` result array belongs to ``sources[i]``.
+    ``engine`` may also be a :class:`repro_torch.dist.engine.DistEngine`
+    over a sharding of this layout (``D*nv == n_pad``: the global vertex
+    space is the same), and then the batch advances across the ranks; so
+    may the other apps' ``engine``."""
     dev = engine.device if engine is not None else resolve_device(device)
     sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
     B, n_pad = len(sources), layout.n_pad

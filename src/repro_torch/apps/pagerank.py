@@ -44,7 +44,8 @@ def pagerank(layout, iters: int = 10, damping: float = 0.85,
              device="cuda", pr0=None):
     """Ranks as a float32 ``[n]`` NumPy array.  ``fused=True`` runs
     :meth:`Engine.run_fused`, ``fused=False`` the host-driven
-    :meth:`Engine.run`.
+    :meth:`Engine.run` (either of a
+    :class:`repro_torch.dist.engine.DistEngine` too).
 
     ``pr0=`` is the residual-restart path for dynamic graphs: the previous
     layout's converged ``[n]`` (or ``[n_pad]``) ranks after a small delta.

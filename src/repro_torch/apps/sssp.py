@@ -51,7 +51,9 @@ def sssp_multi(layout, sources, engine: Engine = None, max_iters: int = None,
     """Batched multi-source SSSP: one :meth:`Engine.run_batched` call relaxes
     ``len(sources)`` queries together, bit-exact with per-source
     :func:`sssp` calls; row ``i`` of the ``[B, n]`` distances belongs to
-    ``sources[i]``.
+    ``sources[i]``.  ``engine`` may be a
+    :class:`repro_torch.dist.engine.DistEngine`; one built with
+    ``wire_bf16=True`` rounds the f32 distances it sends to bf16.
 
     ``dist0`` and ``frontier0`` (``[B, n_pad]``) warm-start the lanes: the
     relaxation converges to each source's exact distances from any

@@ -71,7 +71,9 @@ def sssp_parents_multi(layout, sources, engine: Engine = None,
     """Batched multi-source SSSP with parent tracking: one
     :meth:`Engine.run_batched` call, bit-exact with per-source
     :func:`sssp_with_parents` calls.  Row ``i`` of the ``[B, n]`` results
-    belongs to ``sources[i]``."""
+    belongs to ``sources[i]``.  A :class:`repro_torch.dist.engine.DistEngine`
+    works as ``engine`` too; its bf16 wire never engages for this monoid
+    (int64 words), so the result stays exact."""
     if not layout.weighted:
         raise ValueError("SSSP with parents needs an edge-weighted graph")
     dev = engine.device if engine is not None else resolve_device(device)

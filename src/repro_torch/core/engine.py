@@ -124,19 +124,26 @@ def _put_lanes(x: torch.Tensor, idx: torch.Tensor,
                        x.dtype)
 
 
+def _lane_counts(active) -> np.ndarray:
+    """Active vertices per lane of a ``[B, n]`` frontier, on the host."""
+    return active.sum(1).cpu().numpy()
+
+
 def _run_batched_loop(step, states: dict, active, max_iters: int,
                       until_empty: bool, collect_stats: bool,
                       engine_name: str = "core", program: str = "",
-                      wire_bytes_fn=None):
+                      wire_bytes_fn=None, lane_counts=_lane_counts):
     """Host-driven batched convergence loop of :meth:`Engine.run_batched`
     (kept a module function, as in the reference, for the multi-device
     engine).
 
     ``step(states, active, it) -> (states, active)`` is one batched
     superstep over ``[W, ...]`` leaves, for any lane width ``W``.  The
-    *union* frontier drives convergence: each step reads back one ``[B]``
-    flag per lane (``active.any(1)``), and the active count only when
-    ``collect_stats``.  A step with every lane live runs on the whole batch;
+    *union* frontier drives convergence: each step reads back the active
+    count of each lane (``lane_counts(active)``, a ``[B]`` host array; the
+    distributed engine's sums them over its ranks, so that every rank
+    takes the same decisions).  A step with every lane live runs on the
+    whole batch;
     otherwise the live lanes are packed to a power-of-two width
     (:func:`_compact_lane_index`), stepped, and scattered back.  With
     ``until_empty=False`` a step with no live lane is skipped.  Returns
@@ -151,14 +158,15 @@ def _run_batched_loop(step, states: dict, active, max_iters: int,
     B = active.shape[0]
     stats = []
     for it in range(max_iters):
-        lane_act = active.any(1).cpu().numpy()
+        per_lane = lane_counts(active)
+        lane_act = per_lane > 0
         n_lanes = int(lane_act.sum())
         if n_lanes == 0:
             if until_empty:
                 break
             continue    # every phase masks on active: a no-op step
         t0 = time.perf_counter()
-        n_act = int(active.sum()) if collect_stats else 0
+        n_act = int(per_lane.sum()) if collect_stats else 0
         if n_lanes == B:
             W = B
             states, active = step(states, active, it)

@@ -1,4 +1,5 @@
-// Monoid folds shared by fused_dc.cu, segment_combine.cu and segment_fold.cu.
+// Monoid folds and edge functions shared by the fold kernels (fused_dc.cu,
+// fused_stream.cu, segment_combine.cu, segment_fold.cu, spmv_block.cu).
 //
 // A fold is one of {add, min, max} over one of {float, int, unsigned}, the
 // combinations the Pallas kernels of the reference lower, or min over long
@@ -84,6 +85,45 @@ __device__ __forceinline__ T combine(T a, T b) {
   } else {
     return a > b ? a : b;
   }
+}
+
+// The edge functions of the fused DC kernels (fused_dc.cu, fused_stream.cu),
+// applied to the value an edge gathers from the table: none; EDGE_ADD_WEIGHT
+// (float tables: plus the edge's weight); EDGE_ADD_WEIGHT_TO_KEY (the packed
+// long long words of min_with_payload: the weight added to the f32 key).
+enum { EDGE_NONE = 0, EDGE_ADD_WEIGHT = 1, EDGE_ADD_WEIGHT_TO_KEY = 2 };
+
+// The packed word v with w added to its f32 key (the high word), rounded
+// once to nearest (__fadd_rn, never contracted), over the same payload.
+__device__ __forceinline__ long long add_weight_to_key(long long v, float w) {
+  const unsigned long long u = static_cast<unsigned long long>(v);
+  const float key = __uint_as_float(static_cast<unsigned>(u >> 32));
+  const unsigned long long hi = __float_as_uint(__fadd_rn(key, w));
+  return static_cast<long long>(hi << 32 | (u & 0xffffffffull));
+}
+
+template <int EF, typename T>
+__device__ __forceinline__ T apply_edge(T v, float w) {
+  if constexpr (EF == EDGE_ADD_WEIGHT) return v + w;
+  else if constexpr (EF == EDGE_ADD_WEIGHT_TO_KEY) return add_weight_to_key(v, w);
+  else return v;
+}
+
+// Calls fn(std::integral_constant<int, EF>{}) for the runtime edge function
+// over tables of T: none for every T, EDGE_ADD_WEIGHT for float and
+// EDGE_ADD_WEIGHT_TO_KEY for long long.
+template <typename T, typename Fn>
+cudaError_t dispatch_edge(int edge_fn, Fn fn) {
+  if (edge_fn == EDGE_NONE) return fn(std::integral_constant<int, EDGE_NONE>{});
+  if constexpr (std::is_same_v<T, float>) {
+    if (edge_fn == EDGE_ADD_WEIGHT)
+      return fn(std::integral_constant<int, EDGE_ADD_WEIGHT>{});
+  }
+  if constexpr (std::is_same_v<T, long long>) {
+    if (edge_fn == EDGE_ADD_WEIGHT_TO_KEY)
+      return fn(std::integral_constant<int, EDGE_ADD_WEIGHT_TO_KEY>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Calls fn(Combo<M, T>{}) for the runtime (monoid, dtype) pair; long long

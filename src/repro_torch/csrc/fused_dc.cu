@@ -88,7 +88,6 @@ using partition_fold::Slice;
 // The widest slice of a partition a block holds, by accumulator width.
 template <typename T>
 constexpr int kMaxChunk = sizeof(T) == 8 ? 16384 : 32768;
-enum { EDGE_NONE = 0, EDGE_ADD_WEIGHT = 1, EDGE_ADD_WEIGHT_TO_KEY = 2 };
 
 // The weighted ring is smaller, so that it fits beside kMaxChunk segments.
 template <bool WEIGHT>
@@ -108,15 +107,6 @@ static_assert(fits<float>() && fits<long long>() &&
 
 __device__ __forceinline__ long long clamp_index(long long s, long long len) {
   return s < 0 ? 0 : (s >= len ? len - 1 : s);
-}
-
-// The packed word v with w added to its f32 key (the high word), rounded
-// once to nearest, over the same payload.
-__device__ __forceinline__ long long add_weight_to_key(long long v, float w) {
-  const unsigned long long u = static_cast<unsigned long long>(v);
-  const float key = __uint_as_float(static_cast<unsigned>(u >> 32));
-  const unsigned long long hi = __float_as_uint(__fadd_rn(key, w));
-  return static_cast<long long>(hi << 32 | (u & 0xffffffffull));
 }
 
 // An edge gathers its source's value and validity from the table and folds
@@ -178,10 +168,7 @@ struct FusedEdges {
   __device__ int key(const Edge& ed) const { return ed.tv ? ed.key : -1; }
 
   __device__ T value(const Edge& ed) const {
-    if constexpr (EF == EDGE_ADD_WEIGHT) return ed.v + ed.w;
-    else if constexpr (EF == EDGE_ADD_WEIGHT_TO_KEY)
-      return add_weight_to_key(ed.v, ed.w);
-    else return ed.v;
+    return apply_edge<EF>(ed.v, ed.w);
   }
 };
 
@@ -226,22 +213,11 @@ int run(const void* table, const void* table_valid, long long table_len,
     using C = decltype(combo);
     using T = typename C::type;
     if (chunk > kMaxChunk<T>) return cudaErrorInvalidValue;
-    auto go = [&](auto ef) -> cudaError_t {
+    return dispatch_edge<T>(edge_fn, [&](auto ef) -> cudaError_t {
       return launch<C::monoid, T, decltype(ef)::value>(
           table, table_valid, table_len, table_stride, src_local, dst_local,
           valid, w, parts, acc, touched, s);
-    };
-    using None = std::integral_constant<int, EDGE_NONE>;
-    using AddWeight = std::integral_constant<int, EDGE_ADD_WEIGHT>;
-    using ToKey = std::integral_constant<int, EDGE_ADD_WEIGHT_TO_KEY>;
-    if (edge_fn == EDGE_NONE) return go(None{});
-    if constexpr (std::is_same_v<T, float>) {
-      if (edge_fn == EDGE_ADD_WEIGHT) return go(AddWeight{});
-    }
-    if constexpr (std::is_same_v<T, long long>) {
-      if (edge_fn == EDGE_ADD_WEIGHT_TO_KEY) return go(ToKey{});
-    }
-    return cudaErrorInvalidValue;
+    });
   });
 }
 

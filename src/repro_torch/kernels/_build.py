@@ -151,6 +151,11 @@ FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
     I32, I32, I32, I32,  # k, q, edge_tile, chunk
     I64, I32, I32, I32,  # num_segments, monoid, dtype, edge_fn
     P, P, P))           # acc, touched, stream
+FUSED_STREAM = CudaKernel("fused_stream", "fused_stream.cu", (
+    P, P, I64,          # table, table_valid, table_len
+    P, P, P, P, I64,    # idx, edge_valid, dst, w, n
+    I64, I32, I32, I32,  # num_segments, monoid, dtype, edge_fn
+    P, P, I32, P))      # acc, touched, device index, stream
 SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
     P, P, P,            # vals, valid, ids
     I64, I64, I32, I32,  # n, num_segments, monoid, dtype
@@ -202,7 +207,8 @@ SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
     I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
     P, P))              # y, stream
 KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK,
-           FUSED_DC_LANES, DC_GATHER_LANES, SEGMENT_COMBINE_LANES)
+           FUSED_DC_LANES, DC_GATHER_LANES, SEGMENT_COMBINE_LANES,
+           FUSED_STREAM)
 
 
 def build_all() -> None:

@@ -28,7 +28,15 @@ Two versions, chosen by the device of the tensors:
     that this is the layout's ``edge_dst`` on every valid edge, and
     :func:`global_edges` builds ``idx`` and ``dst`` from the tiles for the
     plain version.  Lanes take the kernel's lane form (``fused_dc_lanes``):
-    one launch, lane ``b`` on ``blockIdx.y``.
+    one launch, lane ``b`` on ``blockIdx.y``;
+  * :func:`fused_stream_cuda`, the CUDA kernel ``csrc/fused_stream.cu``
+    (CUDA tensors with ``idx`` and ``dst``, no ``tiles``): the layout-free
+    form, which the distributed engine calls on its receive table
+    (:class:`repro_torch.kernels.ops.FusedStreamKernel`).  The stream fold
+    of ``csrc/segment_fold.cu`` with the table gather and the edge function
+    in its message load: any ``dst``, one cooperative launch, in shared
+    memory up to 40,960 segments (22,752 for ``int64``), global atomics
+    past that.  One table a call.
 
 The CUDA kernel knows two edge functions, :func:`add_weight` (float32
 tables) and :func:`add_weight_to_key` (the ``int64`` packed words of
@@ -132,6 +140,24 @@ def ref_fused_scatter_fold(mono, table, table_valid, idx, edge_valid, dst,
     return fold(vals, valid, dst, num_segments, mono.name)
 
 
+def _kernel_codes(table, monoid: str, apply_weight, w, ne: int) -> tuple:
+    """``(monoid, dtype, edge_fn)`` codes of both CUDA forms; raises for an
+    edge function they do not know, a table type it does not take, or
+    weights that are not ``[ne]`` f32 on the table's device."""
+    if apply_weight not in _EDGE_FNS:
+        raise ValueError("the CUDA fused DC kernel applies no edge function "
+                         "but repro_torch.kernels.fused_step.add_weight and "
+                         "add_weight_to_key")
+    codes = (_build.MONOID_CODES[monoid],
+             _build.dtype_code(table.dtype, monoid), _EDGE_FNS[apply_weight])
+    if apply_weight is not None:
+        want = _EDGE_DTYPES[apply_weight]
+        if table.dtype != want:
+            raise TypeError(f"{apply_weight.__name__} needs a {want} table")
+        _build.check_cuda(w, "w", torch.float32, (ne,), table.device)
+    return codes
+
+
 def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
                   monoid: str, tiles: EdgeTiles, apply_weight=None, w=None):
     """Launch ``csrc/fused_dc.cu`` on the current stream: ``fused_dc`` for
@@ -159,17 +185,7 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
         raise ValueError(f"need k, q and edge_tile >= 1 and k*q segments "
                          f"within num_segments, got k={k} q={q} "
                          f"edge_tile={et} num_segments={ns}")
-    if apply_weight not in _EDGE_FNS:
-        raise ValueError("the CUDA fused DC kernel applies no edge function "
-                         "but repro_torch.kernels.fused_step.add_weight and "
-                         "add_weight_to_key")
-    codes = (_build.MONOID_CODES[monoid],
-             _build.dtype_code(table.dtype, monoid), _EDGE_FNS[apply_weight])
-    if apply_weight is not None:
-        want = _EDGE_DTYPES[apply_weight]
-        if table.dtype != want:
-            raise TypeError(f"{apply_weight.__name__} needs a {want} table")
-        _build.check_cuda(w, "w", torch.float32, (ne,), dev)
+    codes = _kernel_codes(table, monoid, apply_weight, w, ne)
     acc = torch.empty(shape[:-1] + (ns,), dtype=table.dtype, device=dev)
     touched = torch.empty(shape[:-1] + (ns,), dtype=torch.bool, device=dev)
     edges = (tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
@@ -185,6 +201,36 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
         _build.FUSED_DC_LANES.launch(
             table.data_ptr(), table_valid.data_ptr(), m, m, *edges, lanes,
             ns, *codes, *outs)
+    return acc, touched
+
+
+def fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
+                      num_segments: int, monoid: str, apply_weight=None,
+                      w=None):
+    """Launch ``csrc/fused_stream.cu`` on the current stream: the
+    layout-free fused step over ``idx`` and ``dst``, for one ``[M]``
+    table."""
+    ns, dev = int(num_segments), table.device
+    if table.dim() != 1 or table.shape[0] < 1:
+        raise ValueError(f"the layout-free fused DC kernel takes one [M] "
+                         f"table with M >= 1, got {tuple(table.shape)}")
+    m, ne = table.shape[0], idx.shape[0]
+    _build.check_cuda(table, "table")
+    _build.check_cuda(table_valid, "table_valid", torch.bool, (m,), dev)
+    _build.check_cuda(idx, "idx", torch.int32, (ne,), dev)
+    _build.check_cuda(edge_valid, "edge_valid", torch.bool, (ne,), dev)
+    _build.check_cuda(dst, "dst", torch.int32, (ne,), dev)
+    if ns <= 0:
+        raise ValueError(f"num_segments must be positive, got {ns}")
+    codes = _kernel_codes(table, monoid, apply_weight, w, ne)
+    acc = torch.empty(ns, dtype=table.dtype, device=dev)
+    touched = torch.empty(ns, dtype=torch.bool, device=dev)
+    _build.FUSED_STREAM.launch(
+        table.data_ptr(), table_valid.data_ptr(), m, idx.data_ptr(),
+        edge_valid.data_ptr(), dst.data_ptr(),
+        w.data_ptr() if apply_weight is not None else None, ne, ns, *codes,
+        acc.data_ptr(), touched.data_ptr(), dev.index,
+        _build.stream_handle(dev.index))
     return acc, touched
 
 
@@ -206,6 +252,8 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
       num_segments: segment count (the engine passes ``n_pad + 1``).
       tiles:       CUDA only, in place of ``idx`` and ``dst`` (which must
                    then be None): the edges' tile form, :class:`EdgeTiles`.
+                   Without it a CUDA call takes ``idx`` and ``dst`` and
+                   launches the layout-free kernel (one ``[M]`` table).
       apply_weight, w: optional edge function ``f(vals, w)`` and [NE]
                    weights.
     Returns:
@@ -221,10 +269,14 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                                       edge_valid, dst, num_segments,
                                       apply_weight=apply_weight, w=w)
     if kind == "cuda":
-        if tiles is None or idx is not None or dst is not None:
-            raise ValueError("the CUDA fused DC kernel reads the edges' tile "
-                             "form: pass tiles=EdgeTiles(...) and idx=dst="
-                             "None")
+        if (tiles is None) == (idx is None or dst is None):
+            raise ValueError("the CUDA fused DC kernel reads the edges either "
+                             "in their tile form (tiles=EdgeTiles(...), "
+                             "idx=dst=None) or as idx and dst (tiles=None)")
+        if tiles is None:
+            return fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
+                                     num_segments, monoid,
+                                     apply_weight=apply_weight, w=w)
         return fused_dc_cuda(table, table_valid, edge_valid, num_segments,
                              monoid, tiles, apply_weight=apply_weight, w=w)
     raise ValueError(f"no fused DC step for device {table.device}")

@@ -1,10 +1,12 @@
 """Engine-facing wrappers around the port's kernels.
 
-Counterparts of ``FoldKernel``, ``FusedDCKernel``, ``ScatterKernel``,
-``GatherKernel`` and ``SpmvKernel`` in :mod:`repro.kernels.ops`.  The
-layout-bound classes bind a layout once: they move its arrays to the
-engine's device and check the preconditions of the CUDA kernels, per tile
-on the host and, for the fused kernel, per edge on the device.
+Counterparts of ``FoldKernel``, ``FusedDCKernel``, ``FusedStreamKernel``,
+``ScatterKernel``, ``GatherKernel`` and ``SpmvKernel`` in
+:mod:`repro.kernels.ops` (the reference's pure-jnp ``Ref*`` classes are
+``plain=True`` here).  The layout-bound classes bind a layout once: they
+move its arrays to the engine's device and check the preconditions of the
+CUDA kernels, per tile on the host and, for the fused kernel, per edge on
+the device.
 
 ``FusedDCKernel``, ``GatherKernel`` and ``ScatterKernel`` also take inputs
 with a leading lane axis ``[B, ...]``, the batched engine's queries, and then
@@ -186,6 +188,41 @@ class FusedDCKernel(_TileGeometry):
                 table, table_valid, self.edge_src, self.edge_valid,
                 self.edge_dst, self.n_pad + 1, monoid=self.monoid,
                 tiles=self.tiles, apply_weight=aw, w=w)
+
+
+class FusedStreamKernel:
+    """Layout-free fused gather→fold: ``(table, table_valid, idx,
+    edge_valid, dst, num_segments, w=None, apply_weight=None) -> (acc,
+    touched)``, the :func:`fused_scatter_fold` contract on one ``[M]``
+    table.
+
+    What :class:`FoldKernel` is to the fold, this is to the fused step: the
+    distributed engine's receive table (``rv[slot]``) has no tile or
+    partition structure, so each call takes the table, the slot indices and
+    the static validity, and one launch of ``csrc/fused_stream.cu`` fuses
+    the slot gather, the edge function and the fold.  The route follows the
+    table's device (the plain version on the CPU) unless ``plain=True``."""
+
+    def __init__(self, monoid_name: str, dtype: torch.dtype,
+                 plain: bool = False):
+        self.monoid = monoid_name
+        self.dtype = dtype
+        self.plain = plain
+        self._obs_scope = {on_card: _scope_name(
+            "fused_dc", plain, "cuda" if on_card else "cpu")
+            for on_card in (False, True)}
+
+    def __call__(self, table, table_valid, idx, edge_valid, dst,
+                 num_segments, w=None, apply_weight=None):
+        with kernel_scope(self._obs_scope[table.is_cuda]):
+            if self.plain:
+                return ref_fused_scatter_fold(
+                    M.make(self.monoid, self.dtype), table, table_valid, idx,
+                    edge_valid, dst, int(num_segments),
+                    apply_weight=apply_weight, w=w)
+            return fused_scatter_fold(
+                table, table_valid, idx, edge_valid, dst, int(num_segments),
+                monoid=self.monoid, apply_weight=apply_weight, w=w)
 
 
 class GatherKernel(_TileGeometry):

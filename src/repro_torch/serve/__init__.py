@@ -21,10 +21,11 @@ class ServeConfig:
                      reference's ``ref`` backend).
       mode:          scatter-gather mode ('hybrid' | 'dc' | 'sc').
       max_batch:     max queries fused into one batched run.
-      sharded/mesh:  distributed serving; not ported yet (both must stay
-                     None).
-      wire_bf16 / wire_bitmap: dist-only wire compression toggles (kept for
-                     the reference's field set; unused without sharding).
+      sharded/mesh:  distributed serving (both or neither): a
+                     :class:`repro_torch.graph.shard.ShardedLayout` of the
+                     resident layout and this rank's
+                     :class:`repro_torch.dist.Mesh`.
+      wire_bf16 / wire_bitmap: dist-only wire compression toggles.
 
     Caching (see :mod:`repro_torch.serve.cache` for the key space and the
     invalidation rule):

@@ -34,10 +34,18 @@ old tag's entries but for the landmarks it can migrate
 (:meth:`GraphQueryServer._scoped_invalidate`).  Cached results are returned
 by reference and must be treated as read-only.
 
+Distributed batching: constructed with ``sharded=`` (a
+:func:`repro_torch.graph.shard.shard_layout` of the resident layout) and
+``mesh=`` (this rank's :class:`repro_torch.dist.Mesh`), the shared engines
+become :class:`repro_torch.dist.engine.DistEngine` instances and each
+drained batch advances across the ranks through their ``run_batched``.
+Every rank runs the same server and is given the same queries in the same
+order.  A sharded server seeds no lane from landmarks (exact-match caching
+only), as in the reference.
+
 The server runs on ``device`` (a CUDA device by default, which must exist;
-``device="cpu"`` runs the kernels' plain versions).  Not ported yet, and
-raising :class:`NotImplementedError`: distributed serving (``sharded`` /
-``mesh``, ROADMAP queue 1 step 8).
+``device="cpu"`` runs the kernels' plain versions); a sharded server's
+shared engines run on the mesh's device.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from ..apps.sssp import sssp, sssp_multi, sssp_program
 from ..apps.sssp_parents import (sssp_parents_multi, sssp_parents_program,
                                  sssp_with_parents)
 from ..core.engine import Engine, _next_pow2, resolve_device
+from ..dist.engine import DistEngine
 from . import ServeConfig
 from . import cache as cache_lib
 
@@ -66,9 +75,10 @@ from . import cache as cache_lib
 PLAIN_BACKENDS = {None: False, "ref": True}
 
 
-def _not_ported(what: str, step: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md queue 1, step {step})")
+def _check_sharding(sharded, mesh):
+    if (sharded is None) != (mesh is None):
+        raise ValueError("distributed serving needs BOTH sharded and mesh "
+                         "(or neither)")
 
 
 def _plain(backend) -> bool:
@@ -129,8 +139,7 @@ class GraphQueryServer:
     def __init__(self, layout, config: Optional[ServeConfig] = None,
                  device="cuda"):
         config = config or ServeConfig()
-        if config.sharded is not None or config.mesh is not None:
-            raise _not_ported("distributed serving (sharded, mesh)", "8")
+        _check_sharding(config.sharded, config.mesh)
         self.device = resolve_device(device)
         self.config = config
         self.layout = layout
@@ -139,7 +148,11 @@ class GraphQueryServer:
         self.mode = config.mode
         self.max_batch = config.max_batch
         self.cache_size = config.cache_size
-        self._engines = {}            # app name -> shared Engine
+        #: when set (with ``mesh``), the shared engines are DistEngines over
+        #: the sharded layout and batches fan out across the ranks
+        self.sharded = config.sharded
+        self.mesh = config.mesh
+        self._engines = {}            # app name -> shared (Dist)Engine
         self.queue = collections.deque()
         self.done = []
         #: the CacheBackend every entry lives in (exact results AND
@@ -180,6 +193,7 @@ class GraphQueryServer:
 
     def _seedable(self, app: str) -> bool:
         return (self.semantic is not None and app in self.SEEDED_FIELDS
+                and self.sharded is None
                 and self._symmetric(need_weights=(app == "sssp")))
 
     # ---- engines -------------------------------------------------------
@@ -193,7 +207,17 @@ class GraphQueryServer:
     def _shared_engine(self, app: str, make_program):
         eng = self._engines.get(app)
         if eng is None:
-            eng = self._engine(make_program())
+            if self.sharded is not None:
+                # D*nv == layout.n_pad: the sharded global vertex space is
+                # the single-device one, so the *_multi state construction
+                # drives the ranks unchanged
+                cfg = self.config
+                eng = DistEngine(self.sharded, make_program(), self.mesh,
+                                 mode=self.mode, wire_bf16=cfg.wire_bf16,
+                                 wire_bitmap=cfg.wire_bitmap,
+                                 plain=self.plain)
+            else:
+                eng = self._engine(make_program())
             self._engines[app] = eng
         return eng
 
@@ -292,10 +316,9 @@ class GraphQueryServer:
         :func:`repro_torch.graph.delta.apply_delta`), the old tag's
         superseded entries are garbage-collected and clean-partition
         landmarks of an insertion-only delta migrate to the new tag
-        (:meth:`_scoped_invalidate`).  ``sharded`` / ``mesh`` are not
-        ported yet."""
-        if sharded is not None or mesh is not None:
-            raise _not_ported("distributed serving (sharded, mesh)", "8")
+        (:meth:`_scoped_invalidate`).  ``sharded`` / ``mesh`` (both or
+        neither) put the new layout's shared engines on the ranks."""
+        _check_sharding(sharded, mesh)
         if delta is not None and (delta.k != layout.k
                                   or delta.q != layout.q
                                   or delta.n != layout.n):
@@ -315,6 +338,10 @@ class GraphQueryServer:
             self.warmer.reset()
         self._reset_layout_metrics()
         self.layout = layout
+        self.sharded = sharded
+        self.mesh = mesh
+        self.config = dataclasses.replace(self.config, sharded=sharded,
+                                          mesh=mesh)
         self._layout_tag = new_tag
         self._bind_layout()
         self.epoch += 1

@@ -21,10 +21,10 @@ from repro_torch.kernels.dc_gather import (dc_gather_cuda, dc_pieces,
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
                                             add_weight_to_key, fused_dc_cuda,
-                                            global_edges,
+                                            fused_scatter_fold, global_edges,
                                             ref_fused_scatter_fold)
-from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
-                                     ScatterKernel, SpmvKernel)
+from repro_torch.kernels.ops import (FusedDCKernel, FusedStreamKernel,
+                                     GatherKernel, ScatterKernel, SpmvKernel)
 from repro_torch.kernels.segment_combine import (ref_segment_combine,
                                                  segment_combine_cuda)
 from repro_torch.kernels.spmv_block import ref_spmv_block, spmv_block_cuda
@@ -1258,3 +1258,150 @@ def test_trace_holds_kernel_scopes_and_device_records(dev, monkeypatch,
     with obs.override_enabled(True):
         eng.run(dict(state), frontier, max_iters=1, until_empty=False)
     assert entered == []
+
+
+# ----------------------------------------------------------------------
+# the layout-free fused DC regime (csrc/fused_stream.cu) and the
+# distributed engine on one NCCL rank
+# ----------------------------------------------------------------------
+
+def _stream_edges(rng, m, ne, ns, device):
+    """Unsorted dst (a few outside [0, ns)), idx past the table (clamped),
+    mixed validity."""
+    idx = rng.integers(-3, m + 3, ne).astype(np.int32)
+    dst = rng.integers(-2, ns + 2, ne).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        idx, rng.random(ne) < 0.8, dst))
+
+
+STREAM_KERNEL_CASES = [(m, d, None) for m in MONOIDS for d in sorted(DTYPES)]
+STREAM_KERNEL_CASES += [("min", "float32", add_weight),
+                        ("add", "float32", add_weight)]
+
+
+# both regimes of the stream fold: shared memory up to 40,960 segments,
+# global atomics past it
+@pytest.mark.parametrize("ns", [7, 40960, 40961, 300_001])
+@pytest.mark.parametrize("monoid,dtype,fn", STREAM_KERNEL_CASES)
+def test_fused_stream_kernel_matches_plain(dev, monoid, dtype, fn, ns):
+    rng = np.random.default_rng(70)
+    m, ne = 50_000, 200_000
+    table = _payload(rng, m, DTYPES[dtype], dev)
+    tvalid = torch.from_numpy(rng.random(m) < 0.6).to(dev)
+    idx, evalid, dst = _stream_edges(rng, m, ne, ns, dev)
+    w = _payload(rng, ne, torch.float32, dev) if fn else None
+    before = _build.FUSED_STREAM.launches
+    got = fused_scatter_fold(table, tvalid, idx, evalid, dst, ns,
+                             monoid=monoid, apply_weight=fn, w=w)
+    torch.cuda.synchronize()
+    assert _build.FUSED_STREAM.launches == before + 1
+    _assert_bit_exact(got, ref_fused_scatter_fold(
+        M.REGISTRY[monoid](DTYPES[dtype]), table, tvalid, idx, evalid, dst,
+        ns, apply_weight=fn, w=w))
+
+
+# the 8-byte min: shared memory up to 22,752 segments
+@pytest.mark.parametrize("ns", [7, 22752, 22753, 300_001])
+@pytest.mark.parametrize("fn", [None, add_weight_to_key])
+def test_wide_fused_stream_kernel_matches_plain(dev, fn, ns):
+    rng = np.random.default_rng(71)
+    m, ne = 50_000, 200_000
+    table = _packed(rng, m, dev)
+    tvalid = torch.from_numpy(rng.random(m) < 0.6).to(dev)
+    idx, evalid, dst = _stream_edges(rng, m, ne, ns, dev)
+    w = torch.from_numpy(rng.random(ne, dtype=np.float32)
+                         * np.float32(10)).to(dev)
+    got = FusedStreamKernel("min_with_payload", torch.int64)(
+        table, tvalid, idx, evalid, dst, ns, w=w, apply_weight=fn)
+    want = FusedStreamKernel("min_with_payload", torch.int64, plain=True)(
+        table, tvalid, idx, evalid, dst, ns, w=w, apply_weight=fn)
+    torch.cuda.synchronize()
+    _assert_bit_exact(got, want)
+
+
+def test_fused_stream_kernel_refuses_what_it_cannot_fold(dev):
+    """Lanes, another edge function, a table type the edge function does
+    not take, and the two edge forms at once raise before any launch."""
+    rng = np.random.default_rng(72)
+    table = _payload(rng, 64, torch.float32, dev)
+    tvalid = torch.ones(64, dtype=torch.bool, device=dev)
+    idx, evalid, dst = _stream_edges(rng, 64, 100, 9, dev)
+    w = torch.ones(100, device=dev)
+    before = _build.FUSED_STREAM.launches
+    with pytest.raises(ValueError, match=r"\[M\] table"):
+        fused_scatter_fold(table.expand(2, 64).contiguous(),
+                           tvalid.expand(2, 64).contiguous(), idx, evalid,
+                           dst, 9, monoid="min")
+    with pytest.raises(ValueError, match="edge function"):
+        fused_scatter_fold(table, tvalid, idx, evalid, dst, 9, monoid="min",
+                           apply_weight=lambda v, x: v, w=w)
+    with pytest.raises(TypeError, match="int64"):
+        fused_scatter_fold(table, tvalid, idx, evalid, dst, 9, monoid="min",
+                           apply_weight=add_weight_to_key, w=w)
+    with pytest.raises(ValueError, match="tile form"):
+        fused_scatter_fold(table, tvalid, None, evalid, dst, 9,
+                           monoid="min")
+    assert _build.FUSED_STREAM.launches == before
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """One NCCL rank on the card (world size 1, a file store)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_engine_on_one_nccl_rank_matches_engine(dev, nccl_mesh):
+    """BFS (every mode), SSSP with parents (the int64 layout-free regime)
+    and a 4-lane ``bfs_multi`` through ``DistEngine`` on one NCCL rank,
+    bit-exact with the single-device engine; one SC step's dense and
+    ragged forms equal."""
+    from repro_torch.apps import bfs_program, sssp_parents_program
+    from repro_torch.dist.engine import DistEngine, build_sc_step
+    from repro_torch.graph.shard import shard_layout
+    g = rmat(12, 8, seed=9, weighted=True)
+    L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
+    SL = shard_layout(L, 1)
+    src = int(np.argmax(g.out_degrees()))
+    want = rt.bfs(L, src)
+    for mode in ("dc", "sc", "hybrid", "hybrid_pp"):
+        before = _build.FUSED_STREAM.launches
+        got = rt.bfs(L, src, engine=DistEngine(SL, bfs_program(), nccl_mesh,
+                                               mode=mode))
+        assert np.array_equal(got["parent"], want["parent"]), mode
+        assert np.array_equal(got["level"], want["level"]), mode
+        if mode == "dc":
+            assert _build.FUSED_STREAM.launches > before
+    got = rt.sssp_with_parents(L, src, engine=DistEngine(
+        SL, sssp_parents_program(), nccl_mesh, mode="dc"))
+    want = rt.sssp_with_parents(L, src)
+    for key in ("dist", "parent"):
+        assert np.array_equal(got[key], want[key]), key
+    sources = [src, 1, 2, 3]
+    got = rt.bfs_multi(L, sources, engine=DistEngine(SL, bfs_program(),
+                                                     nccl_mesh, mode="dc"))
+    want = rt.bfs_multi(L, sources)
+    for key in ("parent", "level"):
+        assert np.array_equal(got[key], want[key]), key
+    eng = DistEngine(SL, bfs_program(), nccl_mesh, mode="sc")
+    state = {"parent": torch.full((L.n_pad,), -1, dtype=torch.int32,
+                                  device=dev),
+             "level": torch.zeros(L.n_pad, dtype=torch.int32, device=dev),
+             "vid": torch.arange(L.n_pad, dtype=torch.int32,
+                                 device=dev).view(torch.uint32)}
+    active = torch.rand(L.n_pad, device=dev) < 0.3
+    out = [build_sc_step(eng.program, eng.meta, nccl_mesh, ragged=r)(
+        state, active, eng.arrays, 0) for r in (False, True)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][1], out[1][1])
+    for key in state:
+        assert torch.equal(out[0][0][key], out[1][0][key]), key

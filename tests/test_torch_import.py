@@ -13,6 +13,9 @@ import torch
 
 import repro_torch
 from repro_torch.backend import tuning
+from repro_torch.dist import Mesh
+from repro_torch.dist.engine import DistEngine
+from repro_torch.graph.shard import shard_layout
 from repro_torch.graph import build_layout, rmat
 from repro_torch.interop import state_to_torch, to_torch
 
@@ -33,7 +36,9 @@ def test_import_leaves_jax_unloaded():
     mods = _submodules()
     assert {"repro_torch.core.engine", "repro_torch.backend.tuning",
             "repro_torch.kernels.segment_combine", "repro_torch.graph.delta",
-            "repro_torch.obs.export", "repro_torch.obs.tracing"} <= set(mods)
+            "repro_torch.obs.export", "repro_torch.obs.tracing",
+            "repro_torch.dist", "repro_torch.dist.engine",
+            "repro_torch.graph.shard"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {['repro_torch'] + mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -58,7 +63,7 @@ def test_source_imports_neither_jax_nor_reference(path):
 
 @pytest.mark.parametrize("entry", ["engine", "bfs", "cc", "sssp",
                                    "pagerank", "to_torch", "state_to_torch",
-                                   "tuned_layout"])
+                                   "tuned_layout", "dist_engine"])
 def test_default_device_raises_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = rmat(6, 4, seed=0, weighted=True)
@@ -72,6 +77,9 @@ def test_default_device_raises_without_a_card(entry, monkeypatch):
         "to_torch": lambda: to_torch(np.arange(3)),
         "state_to_torch": lambda: state_to_torch({"x": np.arange(3)}),
         "tuned_layout": lambda: tuning.tuned_layout(g, k=4),
+        "dist_engine": lambda: DistEngine(
+            shard_layout(L, 1), repro_torch.apps.bfs_program(),
+            Mesh(group=None, rank=0, size=1, device=torch.device("cuda"))),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -96,6 +104,23 @@ def test_serving_tier_imports_without_jax():
             "from repro_torch.serve import cache\n"
             "from repro_torch import obs\n"
             "assert ServeConfig().mode == 'hybrid'\n"
+            "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'repro.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_dist_imports_without_jax():
+    """``repro_torch.dist`` (the mesh and the distributed engine) and the
+    sharded layout load neither JAX nor the reference."""
+    code = ("import sys\n"
+            "import repro_torch.dist\n"
+            "from repro_torch.dist.engine import DistEngine\n"
+            "from repro_torch.graph.shard import shard_layout\n"
             "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
             "             or m.startswith(('jax.', 'repro.'))))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -182,16 +182,20 @@ def test_single_query_overrides_match_reference(x64, layouts):
 
 
 def test_paths_not_ported_raise(layouts):
+    """Every path of the reference's server is ported; what it refuses, the
+    port refuses alike: distributed serving needs both ``sharded`` and
+    ``mesh`` (or neither), at construction and at a swap, and a delta of
+    another partitioning."""
     _, TL = layouts["symmetric"]
-    with pytest.raises(NotImplementedError, match="step 8"):
-        GraphQueryServer(TL, ServeConfig(sharded=object(), mesh=object()),
-                         device="cpu")
+    for half in (dict(sharded=object()), dict(mesh=object())):
+        with pytest.raises(ValueError, match="BOTH sharded and mesh"):
+            GraphQueryServer(TL, ServeConfig(**half), device="cpu")
     srv = GraphQueryServer(TL, ServeConfig(), device="cpu")
-    # delta swaps are ported: a delta of another partitioning is refused
     with pytest.raises(ValueError, match="delta partitioning does not match"):
         srv.swap_layout(TL, delta=DeltaBuffer(k=TL.k + 1, q=TL.q, n=TL.n))
-    with pytest.raises(NotImplementedError, match="step 8"):
-        srv.swap_layout(TL, sharded=object(), mesh=object())
+    for half in (dict(sharded=object()), dict(mesh=object())):
+        with pytest.raises(ValueError, match="BOTH sharded and mesh"):
+            srv.swap_layout(TL, **half)
     assert srv.epoch == 0
     with pytest.raises(ValueError, match="backend"):
         GraphQueryServer(TL, ServeConfig(backend="pallas"), device="cpu")

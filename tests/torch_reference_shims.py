@@ -7,18 +7,40 @@ context manager that took its place (it restores the flag on exit), so
 the fixture below puts it back under the old name, for one test at a time:
 a module-level patch would change, in the same worker, which reference
 tests pass.  Nothing in the reference package changes.
+
+The reference's multi-device engine fails JAX 0.9's ``check_vma`` check
+(a ``pallas_call`` inside ``shard_map``); :func:`dist_check_vma_shim`
+turns the check off for the engine's ``shard_map``, in the process that
+runs the reference ``DistEngine`` (a subprocess of the tests, which fixes
+its device count before JAX starts).
 """
+import functools
+
 import jax
 import jax.experimental
 import numpy as np
 import pytest
 
 
+def patch_x64(monkeypatch):
+    """Put ``jax.experimental.enable_x64()`` back through ``monkeypatch``
+    (a fixture's, or a ``pytest.MonkeyPatch.context()``'s), until it
+    undoes its patches."""
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)
+
+
 @pytest.fixture
 def x64(monkeypatch):
     """``jax.experimental.enable_x64()`` for the duration of one test."""
-    monkeypatch.setattr(jax.experimental, "enable_x64",
-                        lambda: jax.enable_x64(True), raising=False)
+    patch_x64(monkeypatch)
+
+
+def dist_check_vma_shim():
+    """``repro.dist.engine.shard_map`` without the ``check_vma`` check."""
+    import repro.dist.compat as compat
+    import repro.dist.engine as engine
+    engine.shard_map = functools.partial(compat.shard_map, check_vma=False)
 
 
 def same_bits(a, b):

@@ -1,24 +1,24 @@
 #!/usr/bin/env python3
 """Time the port's tile kernels (``fused_dc``, ``segment_combine``,
-``spmv_block``) and ``dc_gather`` against the same kernels built from another
-checkout, in turns, on one NVIDIA GPU.
+``spmv_block``), ``dc_gather`` and ``segment_fold`` against the same kernels
+built from another checkout, in turns, on one NVIDIA GPU.
 
     python3 tools/ab_torch_kernels.py --baseline DIR [--scale 22] [--seed 0]
         [--rounds 2] [--report results/ab_torch_kernels.json]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``); its ``src/repro_torch/csrc/
-fused_dc.cu``, ``segment_combine.cu``, ``spmv_block.cu`` and ``dc_gather.cu``
-are built beside this tree's.  Each baseline kernel is called through the C
-interface its own source declares, which must be one this tool knows: this
-tree's; for ``fused_dc``, the edge-range form it had before it read the tile
-form (the global ``idx`` and ``dst`` and the partitions' edge offsets, built
-here once on the card from the layout); for ``dc_gather``, the slot form it
-had before its staged regime (no pieces), and its staged form before 8-byte
-words (no word width).  Any other interface is refused.  To time a
-variant of a kernel, build it in another checkout and pass that.  The
-inputs are ``chip_smoke.py``'s: Graph500 RMAT at ``--scale`` from
-``--seed`` with its k=128, edge_tile=256 layout.
+fused_dc.cu``, ``segment_combine.cu``, ``spmv_block.cu``, ``dc_gather.cu``
+and ``segment_fold.cu`` are built beside this tree's.  Each baseline kernel
+is called through the C interface its own source declares, which must be
+one this tool knows: this tree's; for ``fused_dc``, the edge-range form it
+had before it read the tile form (the global ``idx`` and ``dst`` and the
+partitions' edge offsets, built here once on the card from the layout); for
+``dc_gather``, the slot form it had before its staged regime (no pieces),
+and its staged form before 8-byte words (no word width).  Any other
+interface is refused.  To time a variant of a kernel, build it in another
+checkout and pass that.  The inputs are ``chip_smoke.py``'s: Graph500 RMAT
+at ``--scale`` from ``--seed`` with its k=128, edge_tile=256 layout.
 
 Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
 
@@ -43,6 +43,12 @@ Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
             without them (the L2 regime), and a baseline of this tree's
             interface without them too; each row names the regimes this
             tree's calls took.
+  fold      ``segment_fold`` on ``chip_smoke.py``'s three streams: 332,010
+            messages (its SC stream at scale 22) whose ids are the
+            destinations of edges drawn at random, into n_pad + 1 and
+            into 4096 segments, and the tuner's ``fold2`` (every edge of
+            the layout, sorted ids, into 6,145); f32 min, and the 8-byte
+            min on the n_pad + 1 stream.
 
 Each time is given four ways, by ``chip_smoke.kernel_times``: ``ms``, the
 median of single calls each between two CUDA events; ``device_ms``, CUDA
@@ -147,7 +153,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_step import (EdgeTiles, add_weight,
                                                 fused_dc_cuda, global_edges)
+    from repro_torch.backend.tuning import FOLD_CAP
     from repro_torch.kernels.dc_gather import dc_gather_cuda, identity_bits
+    from repro_torch.kernels.fold_block import segment_fold_cuda
     from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                          ScatterKernel, SpmvKernel)
     from repro_torch.kernels.segment_combine import segment_combine_cuda
@@ -166,7 +174,8 @@ def main() -> int:
     for key, kern in (("spmv", _build.SPMV_BLOCK),
                       ("combine", _build.SEGMENT_COMBINE),
                       ("fused", _build.FUSED_DC),
-                      ("gather", _build.DC_GATHER)):
+                      ("gather", _build.DC_GATHER),
+                      ("fold", _build.SEGMENT_FOLD)):
         old[key], iface[key] = baseline_kernel(kern, base_csrc)
     report["baseline_interfaces"] = iface
     started = [k.start_build() for k in old.values()]
@@ -451,6 +460,54 @@ def main() -> int:
                         "pieces": sk.pieces.numel() - 1},
               "regimes": {"new": regime_of(fns["new"]),
                           "new_l2": regime_of(fns["new_l2"])},
+              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+              "times": in_turns(fns, args.reps)})
+
+    del sk, x
+
+    # ---------------- fold ----------------
+    rng = np.random.default_rng(args.seed)
+    sc_ids = torch.from_numpy(g.indices[rng.integers(0, g.m, 332_010)]
+                              .astype(np.int32)).to(dev)
+    sc_valid = torch.rand(sc_ids.shape[0], generator=gen, device=dev) < 0.9
+    ns2 = FOLD_CAP + FOLD_CAP // 2 + 1
+    ev = torch.from_numpy(L.edge_valid.astype(bool)).to(dev)
+    ids2 = torch.sort(torch.randint(0, ns2 - 1, (L.num_edges,),
+                                    generator=gen, device=dev)).values
+    ids2 = torch.where(ev, ids2, ns2 - 1).to(torch.int32)
+
+    def old_fold(vals, valid, ids, fold_ns, monoid):
+        acc = torch.empty(fold_ns, dtype=vals.dtype, device=dev)
+        touched = torch.empty(fold_ns, dtype=torch.bool, device=dev)
+        args = (vals.data_ptr(), valid.data_ptr(), ids.data_ptr(),
+                ids.shape[0], fold_ns, _build.MONOID_CODES[monoid],
+                _build.dtype_code(vals.dtype, monoid), acc.data_ptr(),
+                touched.data_ptr(), vals.device.index, stream())
+        return args, (acc, touched)
+
+    for name, fold_ns, valid, ids, monoid, dtype in (
+            ("n_pad_plus_1", L.n_pad + 1, sc_valid, sc_ids, "min",
+             torch.float32),
+            ("ids_mod_4096", 4096, sc_valid, sc_ids % 4096, "min",
+             torch.float32),
+            ("fold2", ns2, ev, ids2, "min", torch.float32),
+            ("n_pad_plus_1", L.n_pad + 1, sc_valid, sc_ids,
+             "min_with_payload", torch.int64)):
+        m = ids.shape[0]
+        vals = (payload(m) if dtype == torch.float32 else
+                torch.randint(0, 2**62, (m,), generator=gen, device=dev))
+        check_equal(segment_fold_cuda(vals, valid, ids, fold_ns, monoid),
+                    run_c(old["fold"], old_fold(vals, valid, ids, fold_ns,
+                                                monoid)),
+                    f"fold {name} {monoid}")
+        fns = {"old": lambda a=old_fold(vals, valid, ids, fold_ns, monoid):
+               run_c(old["fold"], a),
+               "new": lambda v=vals, ok=valid, i=ids, n=fold_ns, mo=monoid:
+               segment_fold_cuda(v, ok, i, n, mo)}
+        width = vals.element_size()
+        nbytes = m * (width + 1 + 4) + fold_ns * (width + 1)
+        emit({"row": "fold", "case": f"{name} {monoid} {dtype}",
+              "shape": {"messages": m, "num_segments": fold_ns},
               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "times": in_turns(fns, args.reps)})
 
