@@ -38,27 +38,33 @@ Phases, in order; each prints lines that start with its name:
            into 4096 segments, and at the tuner's ``fold2`` shape.
            ``dc_gather`` is checked in both of its regimes (staged, on the
            pieces ``ScatterKernel`` binds, and L2, without them) and timed
-           through ``ScatterKernel``, beside control rows that name their
-           regime (half the sources active, the L2 regime at the same shape,
-           and ``torch.index_select`` of x over the slots' sources as a
-           yardstick of a gather alone).  Then the composed DC step of
+           through ``ScatterKernel``, beside ``torch.index_select`` of x
+           over the slots' sources (one PyTorch call of the gather, without
+           the select) and control rows that name their regime (half the
+           sources active, the L2 regime at the same shape).  Then the
+           composed DC step of
            PageRank timed whole and by part, its plain-torch slot gather
-           included.  Then the lane forms of the batched engine (one launch
-           for B queries: ``fused_dc_lanes``, ``segment_combine_lanes``,
-           ``dc_gather_lanes``), each against its plain lane version at B =
-           4 (every monoid x dtype) and 16, on both of its paths (or
+           included.  Then the lane forms of the batched engine (B queries
+           in one launch, ``segment_combine_lanes`` and ``dc_gather_lanes``,
+           or two, ``fused_dc_interleave`` then ``fused_dc_lanes`` over the
+           layout's destination-sorted edge copy, whose bytes and build time
+           are reported), each against its plain lane version at B = 4
+           (every monoid x dtype) and 16, on both of its paths (or
            regimes), bit-exact, and timed at B = 16 at PageRank's shapes
            (and SSSP's for ``fused_dc``) beside their bound (the lanes'
            shared stream once, each lane's own bytes) and a yardstick: 16
-           single-lane launches on the same lanes.  Then the 8-byte min of
+           single-lane launches on the same lanes (for ``fused_dc``, also
+           each of its two launches alone).  Then the 8-byte min of
            ``min_with_payload`` (int64 packed words: random non-negative
            f32 keys, +inf, any uint32 payload) in every kernel of its path:
            the segment fold into n_pad + 1 and into 4096 segments,
            ``fused_dc`` with no edge function and with
-           ``add_weight_to_key``, ``dc_gather`` (L2 regime) and
-           ``segment_combine``, single-lane and at B = 4 and 16, on both
-           paths, bit-exact, timed beside their 8-byte bound and
-           ``scatter_reduce_(amin)`` of the same words.
+           ``add_weight_to_key``, ``dc_gather`` (staged in half rows, and
+           L2) and ``segment_combine``, single-lane and at B = 4 and 16, on
+           both paths, bit-exact, timed beside their 8-byte bound and
+           ``scatter_reduce_(amin)`` of the same words (the segment fold
+           also beside ``torch.full`` + ``scatter_reduce_`` + its touched
+           flags; ``dc_gather`` beside ``torch.index_select``).
   apps     BFS and SSSP from the highest-degree vertex, CC on the
            symmetrized graph and PageRank (10 iterations through
            ``run_fused``, and 10 through ``run`` for per-iteration times),
@@ -78,7 +84,8 @@ Phases, in order; each prints lines that start with its name:
            ``sssp`` on the card, the first lane with the host oracles, and
            each batched step exactly one launch of each lane kernel of its
            lowering (``dc_gather_lanes`` staged); wall, steps, lanes per
-           step, compactions and peak device memory.
+           step, compactions and peak device memory; the fused lane form's
+           edge copy is built before the timed runs, with its time.
   payload  ``sssp_with_parents`` from the same vertex in hybrid mode on each
            DC lowering: distances bit-exact with ``sssp`` and within 1e-5 of
            Dijkstra, every parent's distance plus its edge's weight equal to
@@ -95,7 +102,8 @@ Phases, in order; each prints lines that start with its name:
            reference's seeding leaves within f32 rounding below the cold
            run, no higher than it and within rtol 1e-5), exact-cache
            hits and a landmark-seeded batch required, each int64 batched
-           run one ``fused_dc_lanes`` launch a step; per-app query walls
+           run one ``fused_dc_interleave`` and one ``fused_dc_lanes`` launch
+           a step; per-app query walls
            (p50, p99) from the port's obs histograms, batch walls and
            widths, counters, seeded iterations saved, engine set-ups.
   delta    dynamic graphs, with deltas confined to the first ceil(0.05 k)
@@ -341,12 +349,16 @@ def main() -> int:
     from repro_torch.kernels.fold_block import (blocked_segment_fold,
                                                 segment_fold)
     from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_step
     from repro_torch.kernels.fused_step import (ENV_FUSED, EdgeTiles,
                                                 add_weight,
                                                 add_weight_to_key,
+                                                build_lane_edges,
                                                 fused_scatter_fold,
-                                                global_edges,
-                                                ref_fused_scatter_fold)
+                                                global_edges, lane_group,
+                                                lane_width,
+                                                ref_fused_scatter_fold,
+                                                ref_interleave_lanes)
     from repro_torch.kernels.ops import (FusedDCKernel, GatherKernel,
                                          ScatterKernel, SpmvKernel)
     from repro_torch.kernels.segment_combine import (ref_segment_combine,
@@ -647,7 +659,10 @@ def main() -> int:
         "max_abs_err": gather_err, **gather_times(lambda: sk(x_flat, live)),
         "plain_ms": median_ms(lambda: ref_dc_gather(x, act, *scat, **geo),
                               3),
-        "library_ms": None, "bytes": gather_bytes,
+        # one PyTorch call of the same gather, without the select
+        "library_ms": median_ms(
+            lambda: torch.index_select(x_flat, 0, png_src), 20),
+        "bytes": gather_bytes,
         "bound_ms": bound_ms(gather_bytes),
         "controls": {
             "staged_half_active": gather_times(lambda: sk(x_flat, half)),
@@ -819,14 +834,18 @@ def main() -> int:
     def lane_unaligned(t):
         return unaligned(t.reshape(-1)).view(t.shape)
 
+    # fused_dc's lane form reads its own copy of the edges (one a path:
+    # the layout's arrays, and copies off a 16-byte boundary)
     fused_lane_paths = {
         "ring": (tiles, edge_valid, kern.edge_w),
         "plain_loads": (
             EdgeTiles(unaligned(tiles.edge_src_local),
                       unaligned(tiles.edge_dst_local), *tiles[2:]),
             unaligned(edge_valid), unaligned(kern.edge_w))}
-    lane_err = dict.fromkeys(("fused_dc", "segment_combine", "dc_gather"),
-                             0.0)
+    lane_copies = {path: build_lane_edges(tl, ev, w)
+                   for path, (tl, ev, w) in fused_lane_paths.items()}
+    lane_err = dict.fromkeys(("fused_dc", "fused_dc_interleave",
+                              "segment_combine", "dc_gather"), 0.0)
     for b, cases in ((4, all_cases), (lanes, few_cases)):
         for path, (tl, ev, w) in fused_lane_paths.items():
             for monoid, dname, fn in ([(m, d, None) for m, d in cases]
@@ -837,7 +856,8 @@ def main() -> int:
                 tvalid[0] = False
                 got = fused_scatter_fold(
                     table, tvalid, None, ev, None, ns, monoid=monoid,
-                    tiles=tl, apply_weight=fn, w=w if fn else None)
+                    tiles=tl, apply_weight=fn, w=w if fn else None,
+                    lane_edges=lane_copies[path])
                 want = ref_fused_scatter_fold(
                     M.REGISTRY[monoid](dtype), table, tvalid, idx, edge_valid,
                     edge_dst, ns, apply_weight=fn,
@@ -893,22 +913,97 @@ def main() -> int:
         return lambda: [call(*r) for r in rows]
 
     # fused_dc: PageRank's step (f32 add, every source live) and SSSP's
-    # (f32 min, add_weight); the edges are every lane's
+    # (f32 min, add_weight); the edges are every lane's.  The lane form's
+    # edge copy is built here as an engine builds it at its first lane
+    # launch (timed, with its bytes), and its two launches are also timed
+    # each alone, on buffers allocated once.
     ltab = lane_payload(lanes, ns, torch.float32)
     lvalid = torch.ones((lanes, ns), dtype=torch.bool, device=dev)
+    del lane_copies
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lane_le = build_lane_edges(tiles, edge_valid, kern.edge_w)
+    torch.cuda.synchronize()
+    lane_edges_rec = {"edges": lane_le.src.numel(), "fine": lane_le.fine,
+                      "bytes": lane_le.nbytes(),
+                      "build_s": time.perf_counter() - t}
 
-    def fused_one(monoid="add", fn=None):
+    # a control: the same copy with the table's rows in vertex order, not
+    # ranked by use
+    by_row = torch.empty_like(lane_le.rank)
+    by_row[lane_le.rank.long()] = torch.arange(ns, dtype=torch.int32,
+                                               device=dev)
+    unranked_le = lane_le._replace(src=by_row[lane_le.src.long()],
+                                   rank=torch.arange(ns, dtype=torch.int32,
+                                                     device=dev))
+    del by_row
+
+    def fused_one(monoid="add", fn=None, le=lane_le):
         w = kern.edge_w if fn else None
         return lambda t, v: fused_scatter_fold(
             t, v, None, edge_valid, None, ns, monoid=monoid, tiles=tiles,
-            apply_weight=fn, w=w)
+            apply_weight=fn, w=w, lane_edges=le)
 
-    def fused_lane_bytes(weighted):
-        return (ne * (4 + 4 + 1 + (4 if weighted else 0)) + nt * 4
-                + (k + 1) * 8 + lanes * ns * (4 + 1 + 4 + 1))
+    def lane_parts(table, tvalid, monoid="add", fn=None):
+        """The lane form's two launches, each alone on buffers allocated
+        once: (interleave, fold, the interleaved table and mask)."""
+        b, m = table.shape
+        size, group = table.element_size(), lane_group(b)
+        il = torch.empty((m, b), dtype=table.dtype, device=dev)
+        mk = torch.empty((m, -(-b // 32)), dtype=torch.int32, device=dev)
+        acc = torch.empty((b, ns), dtype=table.dtype, device=dev)
+        tch = torch.empty((b, ns), dtype=torch.bool, device=dev)
+        codes = (_build.MONOID_CODES[monoid],
+                 _build.dtype_code(table.dtype, monoid),
+                 fused_step._EDGE_FNS[fn])
+        stream = _build.stream_handle(dev)
+        le = lane_le
 
+        def interleave():
+            _build.FUSED_DC_INTERLEAVE.launch(
+                table.data_ptr(), tvalid.data_ptr(), m, m, b, size,
+                le.rank.data_ptr(), il.data_ptr(), mk.data_ptr(), stream)
+
+        def fold():
+            _build.FUSED_DC_LANES.launch(
+                il.data_ptr(), mk.data_ptr(), m, b, le.src.data_ptr(),
+                le.dst.data_ptr(), le.w.data_ptr() if fn else None,
+                le.off.data_ptr(), k, q, le.fine,
+                lane_width(group, size, q, le.fine), group, ns, ns, *codes,
+                acc.data_ptr(), tch.data_ptr(), stream)
+        return interleave, fold, (il, mk)
+
+    def fused_lane_bytes(weighted, size=4, b=lanes):
+        """What the lane form must move: the edge copy's source rows and
+        local destinations (and weights) and its offsets, once for every
+        lane, and each lane's table, validity, acc and touched."""
+        return (lane_le.src.numel() * (4 + 4 + (4 if weighted else 0))
+                + lane_le.off.numel() * 8 + b * ns * (size + 1 + size + 1))
+
+    def interleave_bytes(size):
+        return lanes * ns * (size + 1) + ns * lanes * size + ns * 4
+
+    interleave, lane_fold, il_out = lane_parts(ltab, lvalid)
+    interleave()
+    lane_err["fused_dc_interleave"] = max_abs_err(
+        il_out, ref_interleave_lanes(ltab, lvalid, lane_le.rank),
+        "fused_dc_interleave[lanes=16]")
+    report["fused_dc_interleave"] = {
+        "lanes": lanes, "shape": {"table": [lanes, ns]},
+        "case": "float32, every source live (PageRank's step)",
+        **kernel_times(interleave, 10),
+        "plain_ms": median_ms(lambda: ref_interleave_lanes(
+            ltab, lvalid, lane_le.rank), 2),
+        "library_ms": None, "bytes": interleave_bytes(4),
+        "bound_ms": bound_ms(interleave_bytes(4)),
+        "max_abs_err": lane_err["fused_dc_interleave"]}
+    say("kernels", name="fused_dc_interleave[lanes=16]",
+        **report["fused_dc_interleave"])
     report["fused_dc_lanes"] = {
-        "lanes": lanes, "shape": {"table": [lanes, ns], "edges": ne},
+        "lanes": lanes, "shape": {"table": [lanes, ns], "edges": ne,
+                                  "group": lane_group(lanes),
+                                  "width": lane_width(lane_group(lanes), 4,
+                                                      q)},
         "case": "add float32, all sources live (PageRank's step)",
         **kernel_times(lambda: fused_one()(ltab, lvalid), 10),
         "plain_ms": median_ms(lambda: ref_fused_scatter_fold(
@@ -917,7 +1012,11 @@ def main() -> int:
         "bytes": fused_lane_bytes(False),
         "bound_ms": bound_ms(fused_lane_bytes(False)),
         "max_abs_err": lane_err["fused_dc"], "library_ms": None,
+        "lane_edges": lane_edges_rec,
         "controls": {
+            "fold_only": kernel_times(lane_fold, 10),
+            "unranked_rows": kernel_times(
+                lambda: fused_one(le=unranked_le)(ltab, lvalid), 10),
             "single_lane_x16": kernel_times(
                 singles(fused_one(), ltab, lvalid), 10),
             "sssp_f32_min_add_weight": dict(
@@ -927,7 +1026,7 @@ def main() -> int:
             "sssp_single_lane_x16": kernel_times(
                 singles(fused_one("min", add_weight), ltab, lvalid), 10)}}
     say("kernels", name="fused_dc[lanes=16]", **report["fused_dc_lanes"])
-    del ltab, lvalid, idx
+    del ltab, lvalid, idx, il_out, interleave, lane_fold
 
     # segment_combine: the composed PageRank step's stream in every lane
     # (f32 add, every source partition active), and f32 min
@@ -973,6 +1072,8 @@ def main() -> int:
     # dc_gather: the composed PageRank step's scatter in every lane, through
     # ScatterKernel (staged), beside the L2 regime and half the sources
     lx = lane_payload(lanes, n_pad, torch.float32)
+    png_src = (sk.png_tile_part.repeat_interleave(L.msg_tile) * q
+               + sk.png_src_local)
     llive = torch.ones((lanes, n_pad), dtype=torch.bool, device=dev)
     lhalf = torch.rand((lanes, n_pad), generator=gen, device=dev) < 0.5
 
@@ -989,7 +1090,9 @@ def main() -> int:
         "plain_ms": median_ms(lambda: ref_dc_gather(
             lx.view(lanes, k, q), llive.view(lanes, k, q), *scat, **geo_g),
             2),
-        "library_ms": None, "bytes": gather_lane_bytes,
+        "library_ms": median_ms(
+            lambda: torch.index_select(lx, -1, png_src), 10),
+        "bytes": gather_lane_bytes,
         "bound_ms": bound_ms(gather_lane_bytes),
         "max_abs_err": lane_err["dc_gather"],
         "controls": {
@@ -1000,6 +1103,7 @@ def main() -> int:
                 lx.view(lanes, k, q), llive.view(lanes, k, q), *scat,
                 **geo_g))}}
     say("kernels", name="dc_gather[lanes=16]", **report["dc_gather_lanes"])
+    del png_src
     # ---------------- kernels: the 8-byte min ----------------
     # The int64 min of min_with_payload (SSSP with parents, seeded BFS) in
     # every kernel of its path, at the main path's shapes, on real packed
@@ -1054,12 +1158,28 @@ def main() -> int:
             blocked_segment_fold(vals, sc_valid, ids, fold_ns, monoid=W),
             segment_fold(vals, sc_valid, ids, fold_ns, W),
             f"segment_fold int64 ns={fold_ns}")
+        masked = torch.where(sc_valid, vals, wmono.identity)
+        ids64, ok8 = ids.to(torch.int64), sc_valid.to(torch.uint8)
+
+        def library_fill():
+            # the kernel's whole work in PyTorch calls: a fresh accumulator,
+            # the fold, and the touched flags
+            acc = torch.full((fold_ns,), wmono.identity, dtype=torch.int64,
+                             device=dev).scatter_reduce_(
+                0, ids64, masked, "amin", include_self=True)
+            return acc, torch.zeros(fold_ns, dtype=torch.uint8,
+                                    device=dev).scatter_reduce_(
+                0, ids64, ok8, "amax", include_self=True)
+
         wide_row(f"segment_fold[int64] {key}", lambda: blocked_segment_fold(
                      vals, sc_valid, ids, fold_ns, monoid=W),
                  lambda: segment_fold(vals, sc_valid, ids, fold_ns, W),
                  be * (8 + 1 + 4) + fold_ns * (8 + 1), err,
                  lambda: yardstick(vals, sc_valid, ids, fold_ns),
-                 shape={"messages": be, "num_segments": fold_ns})
+                 shape={"messages": be, "num_segments": fold_ns},
+                 library_fill_ms=median_ms(library_fill, 10),
+                 library_fill_device_ms=device_ms(library_fill, 10))
+        del masked, ids64, ok8
 
     # fused_dc and its lane form: both edge functions, both paths
     idx, _ = global_edges(
@@ -1071,6 +1191,8 @@ def main() -> int:
                   EdgeTiles(unaligned(tiles.edge_src_local),
                             unaligned(tiles.edge_dst_local), *tiles[2:]),
                   unaligned(edge_valid), unaligned(kern.edge_w))}
+    wcopies = {"ring": lane_le,
+               "plain_loads": build_lane_edges(*wpaths["plain_loads"])}
     fused_wide_err = dict.fromkeys((1, 4, lanes), 0.0)
     for b in fused_wide_err:
         shape = (ns,) if b == 1 else (b, ns)
@@ -1081,7 +1203,8 @@ def main() -> int:
                 got = fused_scatter_fold(table, tvalid, None, ev, None, ns,
                                          monoid=W, tiles=tl,
                                          apply_weight=fn,
-                                         w=w if fn else None)
+                                         w=w if fn else None,
+                                         lane_edges=wcopies[path])
                 want = ref_fused_scatter_fold(
                     wmono, table, tvalid, idx, edge_valid, edge_dst, ns,
                     apply_weight=fn, w=kern.edge_w if fn else None)
@@ -1089,7 +1212,7 @@ def main() -> int:
                     got, want, f"fused_dc[int64, lanes={b}] {path}"
                     + (" add_weight_to_key" if fn else "")))
                 del got, want, table, tvalid
-    del wpaths
+    del wpaths, wcopies
 
     def fused_wide(b, fn):
         shape = (ns,) if b == 1 else (b, ns)
@@ -1098,7 +1221,7 @@ def main() -> int:
         w = kern.edge_w if fn else None
         call = lambda: fused_scatter_fold(
             table, live, None, edge_valid, None, ns, monoid=W, tiles=tiles,
-            apply_weight=fn, w=w)
+            apply_weight=fn, w=w, lane_edges=lane_le)
         plain = lambda: ref_fused_scatter_fold(
             wmono, table, live, idx, edge_valid, edge_dst, ns,
             apply_weight=fn, w=w)
@@ -1112,9 +1235,36 @@ def main() -> int:
             ids = (lane + edge_dst.to(torch.int64)) if b > 1 else edge_dst
             return yardstick(words, edge_valid, ids, b * ns)
 
-        nbytes = (ne * (4 + 4 + 1 + (4 if fn else 0)) + nt * 4
-                  + (k + 1) * 8 + b * ns * (8 + 1 + 8 + 1))
-        return call, plain, nbytes, lib
+        nbytes = (fused_lane_bytes(fn is not None, 8, b) if b > 1 else
+                  ne * (4 + 4 + 1 + (4 if fn else 0)) + nt * 4 + (k + 1) * 8
+                  + ns * (8 + 1 + 8 + 1))
+        extra = {}
+        if b > 1:   # the lane form's launches alone, and one lane a launch
+            interleave, fold, il_out = lane_parts(table, live, W, fn)
+            interleave()
+            extra = dict(lane_edges=lane_edges_rec, controls={
+                "interleave_only": dict(kernel_times(interleave, 10),
+                                        bound_ms=bound_ms(
+                                            interleave_bytes(8))),
+                "fold_only": kernel_times(fold, 10),
+                "unranked_rows": kernel_times(
+                    lambda: fused_scatter_fold(
+                        table, live, None, edge_valid, None, ns, monoid=W,
+                        tiles=tiles, apply_weight=fn, w=w,
+                        lane_edges=unranked_le), 10),
+                "single_lane_x16": kernel_times(
+                    singles(lambda t, v: fused_scatter_fold(
+                        t, v, None, edge_valid, None, ns, monoid=W,
+                        tiles=tiles, apply_weight=fn, w=w), table, live),
+                    10)},
+                interleave_err=max_abs_err(
+                    il_out, ref_interleave_lanes(table, live, lane_le.rank),
+                    f"fused_dc_interleave[int64,lanes={b}]"),
+                interleave_plain_ms=median_ms(
+                    lambda: ref_interleave_lanes(table, live, lane_le.rank),
+                    2))
+            del interleave, fold, il_out
+        return call, plain, nbytes, lib, extra
 
     for b, fn, name in ((1, add_weight_to_key, "fused_dc[int64]"),
                         (1, None, "fused_dc[int64] no edge function"),
@@ -1122,32 +1272,43 @@ def main() -> int:
                          "fused_dc[int64,lanes=16]"),
                         (lanes, None,
                          "fused_dc[int64,lanes=16] no edge function")):
-        call, plain, nbytes, lib = fused_wide(b, fn)
+        call, plain, nbytes, lib, extra = fused_wide(b, fn)
         wide_row(name, call, plain, nbytes, fused_wide_err[b], lib,
                  plain_reps=2 if b > 1 else 3,
                  shape={"table": [b, ns] if b > 1 else ns, "edges": ne,
-                        "chunk": 16384},
-                 edge_function=fn.__name__ if fn else None)
-        del call, plain, lib
+                        "chunk": 16384} if b == 1 else {
+                     "table": [b, ns], "edges": ne,
+                     "group": lane_group(b),
+                     "width": lane_width(lane_group(b), 8, q)},
+                 edge_function=fn.__name__ if fn else None, **extra)
+        del call, plain, lib, extra
+    del unranked_le
 
-    # dc_gather (L2 regime: 8-byte rows do not stage) and its lane form
+    # dc_gather (staged: two blocks a piece, each staging half of the
+    # 8-byte rows; L2 without pieces) and its lane form, on the slot
+    # arrays and on copies off their boundaries (one slot a thread)
     sk_w = ScatterKernel(L, W, torch.int64, dev)
+    check(sk_w.pieces is not None, "no 8-byte pieces for the layout")
     gather_wide_err = dict.fromkeys((1, 4, lanes), 0.0)
     for b in gather_wide_err:
         lead = () if b == 1 else (b,)
         kern_g = _build.DC_GATHER if b == 1 else _build.DC_GATHER_LANES
-        for pieces in (sk_w.pieces, None):
+        for pieces, regime, slots in (
+                (sk_w.pieces, "staged", scat), (None, "l2", scat),
+                (sk_w.pieces, "staged", (unaligned(scat[0]),
+                                         unaligned(scat[1]), scat[2]))):
             x = packed(b * n_pad, lead + (k, q))
             act = (torch.rand(lead + (n_pad,), generator=gen, device=dev)
                    < 0.5).view(lead + (k, q))
             got = []
             check(regime_of(lambda: got.append(dc_gather(
-                x, act, *scat, monoid=W, pieces=pieces, **geo_g)), kern_g)
-                == "l2", f"dc_gather[int64, lanes={b}] did not take L2")
+                x, act, *slots, monoid=W, pieces=pieces, **geo_g)), kern_g)
+                == regime, f"dc_gather[int64, lanes={b}] did not take "
+                f"{regime}")
             gather_wide_err[b] = max(gather_wide_err[b], max_abs_err(
                 (got[0],), (ref_dc_gather(x, act, *scat, monoid=W,
                                           **geo_g),),
-                f"dc_gather[int64, lanes={b}]"))
+                f"dc_gather[int64, lanes={b}] {regime}"))
             del got, x, act
     for b, name in ((1, "dc_gather[int64]"), (lanes,
                                                "dc_gather[int64,lanes=16]")):
@@ -1158,17 +1319,25 @@ def main() -> int:
                    + sk_w.png_src_local).to(torch.int64)
         nbytes = (nm * (4 + 1) + (nm // L.msg_tile) * 4
                   + b * (n_pad * (8 + 1) + nm * 8))
+        kern_g = _build.DC_GATHER if b == 1 else _build.DC_GATHER_LANES
+        l2 = lambda: dc_gather(xw.view(lead + (k, q)),
+                               live.view(lead + (k, q)), *scat, monoid=W,
+                               **geo_g)
         wide_row(name, lambda: sk_w(xw, live), lambda: ref_dc_gather(
                      xw.view(lead + (k, q)), live.view(lead + (k, q)), *scat,
                      monoid=W, **geo_g),
-                 nbytes, gather_wide_err[b], None,
+                 nbytes, gather_wide_err[b],
+                 lambda: lambda: torch.index_select(xw, -1, png_src),
                  plain_reps=2 if b > 1 else 3,
-                 regime=regime_of(lambda: sk_w(xw, live),
-                                  _build.DC_GATHER if b == 1
-                                  else _build.DC_GATHER_LANES),
-                 shape={"x": list(lead) + [n_pad], "slots": nm},
-                 controls={"index_select": kernel_times(
-                     lambda: torch.index_select(xw, -1, png_src), 10)})
+                 regime=regime_of(lambda: sk_w(xw, live), kern_g),
+                 shape={"x": list(lead) + [n_pad], "slots": nm,
+                        "pieces": int(sk_w.pieces.numel() - 1)},
+                 controls={
+                     "index_select": kernel_times(
+                         lambda: torch.index_select(xw, -1, png_src), 10),
+                     "l2": {"regime": regime_of(l2, kern_g),
+                            **kernel_times(l2, 10)}})
+        del l2
         del xw, live, png_src
     del sk_w
 
@@ -1408,7 +1577,7 @@ def main() -> int:
     report["dc_gather_regimes_composed"] = dict(_build.DC_GATHER.regimes)
     say("apps", path="composed",
         dc_gather_regimes=report["dc_gather_regimes_composed"])
-    # (these apps fold 4-byte values; 8-byte ones take the L2 regime)
+    # (these apps fold 4-byte values)
     check(_build.DC_GATHER.regimes["staged"] == composed_launches["dc_gather"],
           "the composed apps' dc_gather launches were not all staged")
     report["oracles_composed"] = check_oracles(composed_res, " (composed)")
@@ -1449,8 +1618,18 @@ def main() -> int:
     del seq_engines
     say("batched", sources=sources.tolist(),
         sequential_s=report["batched_sequential_s"])
+    def lane_copy_setup(e) -> dict:
+        """The layout's lane copy after engine ``e``'s first lane call
+        (:meth:`FusedDCKernel.lane_edges`): its bytes, and the time that
+        call spent building it (0 where the layout's engines built it
+        before)."""
+        copy = e._fused.lane_copy
+        before = copy.build_s
+        e._fused.lane_edges()
+        return {"bytes": copy.nbytes(), "build_s": copy.build_s - before}
+
     batched_kernels = {
-        "fused": (_build.FUSED_DC_LANES,),
+        "fused": (_build.FUSED_DC_INTERLEAVE, _build.FUSED_DC_LANES),
         "composed": (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES)}
     batched, batched_launches = {}, {}
     for path, kerns in batched_kernels.items():
@@ -1461,6 +1640,11 @@ def main() -> int:
                    "sssp": rt.Engine(L, rt.apps.sssp_program(), mode="dc")}
         batch_setup_s = time.perf_counter() - t
         os.environ.pop(ENV_FUSED, None)
+        # the fused lane form's edge copy, which the layout's engines share
+        # and build at the first lane launch, built before the timed runs
+        # (set-up)
+        lane_setup = {name: lane_copy_setup(e)
+                      for name, e in engines.items() if e.fused}
         check(all(e.fused == (path == "fused") for e in engines.values()),
               f"batched engines took the wrong DC path for {path}")
         batched_launches[path] = dict.fromkeys((kk.name for kk in kerns), 0)
@@ -1504,7 +1688,8 @@ def main() -> int:
                 "step_wall_s": [st.wall_s for st in stats],
                 "launches": {kk: v for kk, v in launched.items() if v},
                 **({"dc_gather_lanes_regimes": regimes}
-                   if path == "composed" else {})}
+                   if path == "composed" else
+                   {"lane_edges_setup": lane_setup[name]})}
             say("batched", app=name, path=path, **batched[f"{name}_{path}"])
         # the src lane against the host oracles
         lv, par = out["bfs"]["level"][0], out["bfs"]["parent"][0]
@@ -1566,8 +1751,9 @@ def main() -> int:
         for name in path_kernels[path]:
             check(launched[name] > 0, f"payload ({path}): {name} was not "
                   "launched by sssp_with_parents")
-        check(regimes["staged"] == 0,
-              f"payload ({path}): an 8-byte dc_gather launch staged")
+        check(regimes["staged"] == launched["dc_gather"],
+              f"payload ({path}): an 8-byte dc_gather launch did not stage "
+              f"({regimes})")
         payload_launches[path] = launched
         check(np.array_equal(res["dist"], sssp_res["dist"]),
               f"payload ({path}): sssp_with_parents' dist differs from sssp")
@@ -1609,7 +1795,7 @@ def main() -> int:
     payload_rec["sequential_s"] = time.perf_counter() - t
     cold_bfs = rt.bfs_multi(L, sources)
     wide_lane_kernels = {
-        "fused": (_build.FUSED_DC_LANES,),
+        "fused": (_build.FUSED_DC_INTERLEAVE, _build.FUSED_DC_LANES),
         "composed": (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES)}
     for path, kerns in wide_lane_kernels.items():
         if path == "composed":
@@ -1622,6 +1808,9 @@ def main() -> int:
                     L, rt.apps.bfs_seeded_program(), mode="dc")}
         finally:
             os.environ.pop(ENV_FUSED, None)
+        # the lane form's edge copy (set-up)
+        lane_setup = {name: lane_copy_setup(e)
+                      for name, e in engines.items() if e.fused}
         for name, app, want in (
                 ("sssp_parents_multi", rt.sssp_parents_multi,
                  lambda i, key: seq_sp[i][key]),
@@ -1638,7 +1827,7 @@ def main() -> int:
                       f"{launched[kk.name]} times in {steps} steps, not "
                       f"{n_want}")
             check(path == "fused"
-                  or _build.DC_GATHER_LANES.regimes["l2"] == steps,
+                  or _build.DC_GATHER_LANES.regimes["staged"] == steps,
                   f"payload {name}: dc_gather_lanes regimes "
                   f"{_build.DC_GATHER_LANES.regimes}")
             for kk in kerns:
@@ -1658,7 +1847,9 @@ def main() -> int:
                 "lanes": lanes, "wall_s": wall, "steps": steps,
                 "lanes_active": per_step,
                 "step_wall_s": [st.wall_s for st in out["stats"]],
-                "launches": {kk: v for kk, v in launched.items() if v}}
+                "launches": {kk: v for kk, v in launched.items() if v},
+                **({"lane_edges_setup": lane_setup[name]}
+                   if name in lane_setup else {})}
             say("payload", app=name, path=path,
                 **payload_rec[f"{name}_{path}"])
         del engines, out
@@ -1798,7 +1989,8 @@ def main() -> int:
     check(any(c["program"] in wide_programs for c in batched_calls),
           "serve: no int64 program ran batched")
     for c in batched_calls:
-        want = ({"fused_dc_lanes": c["steps"]} if c["steps"] else {})
+        want = ({"fused_dc_interleave": c["steps"],
+                 "fused_dc_lanes": c["steps"]} if c["steps"] else {})
         check(c["launches"] == want,
               f"serve: {c['program']} run_batched launched {c['launches']} "
               f"in {c['steps']} steps")
@@ -2711,10 +2903,16 @@ def main() -> int:
             tuning_launches["spmv_block"], spmv_err, rows[True],
             rows[True]["bound_ms"]),
         # the lane forms, launched by the batched phase
+        row("fused_dc_interleave[lanes=16]", "fused_dc.cu",
+            "fused_step.py:192",
+            batched_launches["fused"]["fused_dc_interleave"],
+            lane_err["fused_dc_interleave"], report["fused_dc_interleave"],
+            report["fused_dc_interleave"]["bound_ms"]),
         dict(row("fused_dc[lanes=16]", "fused_dc.cu", "fused_step.py:192",
                  batched_launches["fused"]["fused_dc_lanes"],
                  lane_err["fused_dc"], report["fused_dc_lanes"],
                  report["fused_dc_lanes"]["bound_ms"]),
+             lane_edges=report["fused_dc_lanes"]["lane_edges"],
              controls=controls(report["fused_dc_lanes"])),
         dict(row("dc_gather[lanes=16]", "dc_gather.cu", "dc_gather.py:62",
                  batched_launches["composed"]["dc_gather_lanes"],
@@ -2736,12 +2934,15 @@ def main() -> int:
         rec = wide[name]
         out = row(name, source, replaces, launches_n, rec["max_abs_err"],
                   rec, rec["bound_ms"])
+        if "controls" in rec:
+            out["controls"] = controls(rec)
         if extra is not None:
             c = wide[extra]
-            out["controls"] = {extra: {key: c[key] for key in
-                                       ("ms", "device_ms", "bound_ms")}}
-        if "regime" in rec:
-            out["regime"] = rec["regime"]
+            out.setdefault("controls", {})[extra] = {
+                key: c[key] for key in ("ms", "device_ms", "bound_ms")}
+        for key in ("regime", "library_fill_ms", "lane_edges"):
+            if key in rec:
+                out[key] = rec[key]
         return out
 
     kernels += [
@@ -2762,6 +2963,16 @@ def main() -> int:
                    "fused_step.py:192",
                    payload_launches["fused_dc_lanes"] + serve_wide_lanes,
                    "fused_dc[int64,lanes=16] no edge function"),
+        dict(row("fused_dc_interleave[int64,lanes=16]", "fused_dc.cu",
+                 "fused_step.py:192",
+                 payload_launches["fused_dc_interleave"] + serve_wide_lanes,
+                 wide["fused_dc[int64,lanes=16]"]["interleave_err"],
+                 dict(wide["fused_dc[int64,lanes=16]"]["controls"]
+                      ["interleave_only"], library_ms=None,
+                      plain_ms=wide["fused_dc[int64,lanes=16]"]
+                      ["interleave_plain_ms"]),
+                 wide["fused_dc[int64,lanes=16]"]["controls"]
+                 ["interleave_only"]["bound_ms"])),
         wide_entry("dc_gather[int64,lanes=16]", "dc_gather.cu",
                    "dc_gather.py:62", payload_launches["dc_gather_lanes"]),
         wide_entry("segment_combine[int64,lanes=16]", "segment_combine.cu",
@@ -2772,7 +2983,7 @@ def main() -> int:
     kernels += [row(name, "fused_stream.cu", "fused_step.py:192",
                     rec["launches"], rec["max_abs_err"], rec, rec["bound_ms"])
                 for name, rec in report["dist"]["kernels"].items()]
-    for entry in kernels[-9:]:
+    for entry in kernels:
         check(entry["launches"] > 0, f"kernel {entry['name']} was not "
               "launched by its path")
     report["kernels"] = kernels

@@ -31,9 +31,10 @@
 // Every call is made by the whole warp (the probe and the spill are warp
 // collectives), on keys that may differ from lane to lane.
 //
-// Lanes (the batched engine's queries): a launch may fold `lanes` independent
-// inputs over the same tiles, lane b on blockIdx.y == b.  A lane's blocks are
-// a single-lane launch's blocks with the lane's pointers: each per-edge array
+// Lanes (the batched engine's queries): a launch of a policy with kLanes may
+// fold `lanes` independent inputs over the same tiles, lane b on blockIdx.y
+// == b.  A lane's blocks are a single-lane launch's blocks with the lane's
+// pointers: each per-edge array
 // advances by its policy's lane_stride (elements; 0 for the layout's arrays,
 // which every lane shares), the policy moves its own per-lane tables
 // (to_lane), and acc and touched advance by Parts::lane_segments.  Each lane's
@@ -228,9 +229,11 @@ constexpr int kMaxLanes = 65535;   // gridDim.y
 //                              stage is released and for all of a lane's
 //                              edges before any fold, so that they overlap;
 //   key(edge), value(edge)     the slot it folds into (-1: none) and what;
+//   kLanes                     whether it takes lanes; only then are the lane
+//                              kernels built for it, and only then has it
 //   lane_stride                elements between two lanes' copies of each
-//                              per-edge array (0: one array for all lanes);
-//   to_lane(b)                 moves its per-lane tables to lane b's.
+//                              per-edge array (0: one array for all lanes)
+//   to_lane(b)                 and moves its per-lane tables to lane b's.
 template <class E>
 __host__ __device__ constexpr int slice_bytes(int chunk) {
   return (int)(sizeof(typename E::Value) + (E::kTouched ? 1 : 0)) * chunk;
@@ -384,23 +387,27 @@ __global__ void __launch_bounds__(kDirectThreads) direct_kernel(
 
 // Launches ring_kernel where the edge arrays and edge_tile meet the ring's
 // copy rules (edge_stream_ok) for every lane, else direct_kernel; one block
-// per chunk of a partition and lane.  P.n_chunks is set here.
+// per chunk of a partition and lane (more than one lane: a policy with
+// kLanes only).  P.n_chunks is set here.
 template <class E>
 cudaError_t launch_tiles(const E& e, Parts P, void* acc, void* touched,
                    cudaStream_t stream) {
-  if (P.lanes < 1 || P.lanes > kMaxLanes) return cudaErrorInvalidValue;
+  const bool lanes = P.lanes > 1;
+  if (P.lanes < 1 || P.lanes > kMaxLanes || (lanes && !E::kLanes))
+    return cudaErrorInvalidValue;
   P.n_chunks = (P.q + P.chunk - 1) / P.chunk;
   bool use_ring =
       edge_stream::edge_stream_ok(e.arrays, E::kArrays, P.edge_tile);
-  for (int a = 0; a < E::kArrays && P.lanes > 1; ++a)
-    use_ring = use_ring && e.lane_stride[a] * e.elems[a] % 16 == 0;
   int bytes_per_edge = 0;
   for (int a = 0; a < E::kArrays; ++a) bytes_per_edge += e.elems[a];
-  const bool lanes = P.lanes > 1;
-  auto kernel = use_ring ? (lanes ? ring_kernel<E, true>
-                                  : ring_kernel<E, false>)
-                         : (lanes ? direct_kernel<E, true>
-                                  : direct_kernel<E, false>);
+  auto kernel = use_ring ? ring_kernel<E, false> : direct_kernel<E, false>;
+  if constexpr (E::kLanes) {
+    if (lanes) {
+      for (int a = 0; a < E::kArrays; ++a)
+        use_ring = use_ring && e.lane_stride[a] * e.elems[a] % 16 == 0;
+      kernel = use_ring ? ring_kernel<E, true> : direct_kernel<E, true>;
+    }
+  }
   const int slice = slice_bytes<E>(P.chunk);
   const size_t smem =
       use_ring ? edge_stream::align16(slice) + E::Ring::bytes(bytes_per_edge)

@@ -94,6 +94,7 @@ struct CombineEdges {
   using Ring = edge_stream::Ring<3, 2048>;
   static constexpr int kMonoid = M;
   static constexpr bool kTouched = true;
+  static constexpr bool kLanes = true;
   static constexpr int kArrays = 3;
   const void* arrays[4];   // vals, dst_local, valid
   int elems[4];

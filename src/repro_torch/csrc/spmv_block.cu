@@ -78,14 +78,12 @@ struct SpmvEdges {
   using Ring = edge_stream::Ring<3, 2048>;
   static constexpr int kMonoid = MONOID_ADD;
   static constexpr bool kTouched = false;
+  static constexpr bool kLanes = false;
   static constexpr int kArrays = WEIGHTED ? 4 : 3;
   const void* arrays[4];   // src_local, dst_local, valid, w
   int elems[4];
   const float* x;
   int k, q;
-  long long lane_stride[4] = {};   // one lane only
-
-  __device__ void to_lane(long long) {}
 
   struct Edge {
     long long xi = 0;   // the source's index into x

@@ -14,10 +14,11 @@ raises on a non-zero code and otherwise adds one to the kernel's
 kernel with regimes chosen by shape in its C entry (``dc_gather``) also
 counts its launches by regime (``CudaKernel.regimes``).
 
-The batched engine's lane forms (``fused_dc_lanes``, ``dc_gather_lanes``,
-``segment_combine_lanes``) are second C entries of the same sources: each is
-a :class:`CudaKernel` of its own, with its own count, that ``shares`` the
-library of its single-lane kernel.
+The batched engine's lane forms (``fused_dc_interleave`` and
+``fused_dc_lanes``, ``dc_gather_lanes``, ``segment_combine_lanes``) are
+further C entries of the same sources: each is a :class:`CudaKernel` of its
+own, with its own count, that ``shares`` the library of its single-lane
+kernel.
 """
 from __future__ import annotations
 
@@ -174,14 +175,20 @@ SEGMENT_COMBINE = CudaKernel("segment_combine", "segment_combine.cu", (
     I32, I32, I32, I32,  # k, q, edge_tile, chunk
     I32, I32,           # monoid, dtype
     P, P, P))           # acc, touched, stream
-# The lane forms: the single-lane arguments with the lane count and the
-# 64-bit lane strides (entries) of the per-lane inputs and outputs.
-FUSED_DC_LANES = CudaKernel("fused_dc_lanes", "fused_dc.cu", (
+# The lane forms: dc_gather's and segment_combine's take the single-lane
+# arguments with the lane count and the 64-bit lane strides (entries) of the
+# per-lane inputs and outputs; fused_dc's is two launches, the tables
+# interleaved, then folded over the layout's destination-sorted edge copy
+# (fused_step.LaneEdges).
+FUSED_DC_INTERLEAVE = CudaKernel("fused_dc_interleave", "fused_dc.cu", (
     P, P, I64, I64,     # table, table_valid, table_len, table_stride
-    P, P, P, P,         # src_local, dst_local, edge_valid, w
-    P, P,               # tile_src_part, part_tile_off
-    I32, I32, I32, I32,  # k, q, edge_tile, chunk
-    I64, I32, I64,      # num_segments, lanes, out_stride
+    I32, I32, P,        # lanes, value_bytes, rank
+    P, P, P), shares=FUSED_DC)  # table_il, mask, stream
+FUSED_DC_LANES = CudaKernel("fused_dc_lanes", "fused_dc.cu", (
+    P, P, I64, I32,     # table_il, mask, table_len, lanes
+    P, P, P, P,         # src, dst, w, off (the edge copy)
+    I32, I32, I32, I32, I32,  # k, q, fine, width, group
+    I64, I64,           # num_segments, out_stride
     I32, I32, I32,      # monoid, dtype, edge_fn
     P, P, P), shares=FUSED_DC)  # acc, touched, stream
 DC_GATHER_LANES = CudaKernel("dc_gather_lanes", "dc_gather.cu", (
@@ -207,8 +214,8 @@ SPMV_BLOCK = CudaKernel("spmv_block", "spmv_block.cu", (
     I32, I32, I32, I32, I32,  # k, q, edge_tile, chunk, weighted
     P, P))              # y, stream
 KERNELS = (FUSED_DC, SEGMENT_FOLD, DC_GATHER, SEGMENT_COMBINE, SPMV_BLOCK,
-           FUSED_DC_LANES, DC_GATHER_LANES, SEGMENT_COMBINE_LANES,
-           FUSED_STREAM)
+           FUSED_DC_INTERLEAVE, FUSED_DC_LANES, DC_GATHER_LANES,
+           SEGMENT_COMBINE_LANES, FUSED_STREAM)
 
 
 def build_all() -> None:

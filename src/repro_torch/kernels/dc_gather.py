@@ -18,17 +18,20 @@ Two versions of one function, chosen by the device of the tensors:
     that partition's slots against them (the TPU kernel's VMEM-resident
     BlockSpec), and **L2**, where every slot reads its source through L2.
     The staged regime needs the ``pieces`` of :func:`dc_pieces` (built once
-    per layout by :class:`repro_torch.kernels.ops.ScatterKernel`), 4-byte
-    words, ``q % 16 == 0`` and ``q <= 46,480`` (``kMaxStagedQ``); a call
-    without pieces, or with 8-byte words, takes the L2 regime.
-    ``_build.DC_GATHER.regimes`` counts the launches of each.
+    per layout by :class:`repro_torch.kernels.ops.ScatterKernel`): for
+    4-byte words ``q % 16 == 0`` and ``q <= 46,480`` (``kMaxStagedQ``);
+    8-byte rows do not fit a block, so two blocks take a piece, each
+    staging half of the rows and writing the slots whose source lies in its
+    half (``q % 32 == 0``, ``q <= 51,648``: ``kMaxHalvesQ``).  A call
+    without pieces takes the L2 regime.  ``_build.DC_GATHER.regimes``
+    counts the launches of each.
 
 A slot whose source lies outside ``[0, k*q)`` gets the identity in both.
 
 ``[B, k, q]`` values and activity write ``B`` lanes of bins, ``[B, NM]``
 (the batched engine's queries): the reference's vmapped scatter.  On a card
-that is the kernel's lane form, ``dc_gather_lanes``: one launch, lane ``b``
-on ``blockIdx.y``, in the regime its C entry chooses for every lane
+that is the kernel's lane form, ``dc_gather_lanes``: one launch, in the
+regime its C entry chooses for every lane
 (``_build.DC_GATHER_LANES.regimes``); staging also needs each lane's rows
 16-byte aligned, which ``q % 16 == 0`` gives a contiguous input.
 """
@@ -44,13 +47,13 @@ import torch
 from ..core import monoid as M
 from . import _build
 
-# A slot streams 9 bytes (its png_src_local, png_valid and value); staging a
-# partition's rows copies 5 bytes a vertex (x and active).
-SLOT_BYTES, ROW_BYTES_PER_VERTEX = 9, 5
+# A slot streams its png_src_local and png_valid (5 bytes) and its value;
+# staging a partition's rows copies a value and an activity byte a vertex.
+SLOT_BYTES, ROW_BYTES_PER_VERTEX = 9, 5   # of 4-byte values
 
 
 def dc_pieces(png_tile_part: np.ndarray, *, q: int, msg_tile: int,
-              blocks: int) -> Optional[np.ndarray]:
+              blocks: int, value_bytes: int = 4) -> Optional[np.ndarray]:
     """The staged regime's pieces of a layout's slot tiles, or None where the
     L2 regime is the better one.
 
@@ -67,15 +70,20 @@ def dc_pieces(png_tile_part: np.ndarray, *, q: int, msg_tile: int,
     small as that allows.
 
     None where the runs are short: the mean run's slot stream
-    (``SLOT_BYTES`` a slot) under its row's ``ROW_BYTES_PER_VERTEX * q``
-    bytes, as on a layout whose tiles are not in source-partition order."""
+    (``SLOT_BYTES`` a slot for 4-byte values, ``value_bytes + 5`` in
+    general) under its row's ``ROW_BYTES_PER_VERTEX * q`` bytes
+    (``value_bytes + 1`` a vertex), as on a layout whose tiles are not in
+    source-partition order.  Eight-byte values launch two blocks a piece
+    (each stages half the row), so the pieces fill the card in two waves."""
     tp = np.asarray(png_tile_part)
     ntm = len(tp)
     if ntm == 0:
         return None
     starts = np.flatnonzero(np.r_[True, tp[1:] != tp[:-1]])
     runs = np.diff(np.r_[starts, ntm])
-    if ntm * msg_tile * SLOT_BYTES < len(runs) * q * ROW_BYTES_PER_VERTEX:
+    extra = value_bytes - 4
+    if ntm * msg_tile * (SLOT_BYTES + extra) < \
+            len(runs) * q * (ROW_BYTES_PER_VERTEX + extra):
         return None
     cuts = np.ones_like(runs)
     for _ in range(min(blocks, ntm) - len(runs)):

@@ -27,8 +27,15 @@ Two versions, chosen by the device of the tensors:
     :class:`repro_torch.kernels.ops.FusedDCKernel` checks once per layout
     that this is the layout's ``edge_dst`` on every valid edge, and
     :func:`global_edges` builds ``idx`` and ``dst`` from the tiles for the
-    plain version.  Lanes take the kernel's lane form (``fused_dc_lanes``):
-    one launch, lane ``b`` on ``blockIdx.y``;
+    plain version.  Lanes take the kernel's lane form: ``fused_dc_interleave``
+    writes the ``[B, M]`` tables as ``[M, B]`` (rows ranked by use) and
+    their validity as a bit mask a row (:func:`ref_interleave_lanes` is its
+    plain version), then
+    ``fused_dc_lanes`` folds :func:`lane_group` lanes of a sub-slice of
+    :func:`lane_width` destinations a block over :class:`LaneEdges`, a
+    destination-sorted copy of the edges (:func:`build_lane_edges`; the
+    engines share one a layout and device), which each group of lanes reads
+    once;
   * :func:`fused_stream_cuda`, the CUDA kernel ``csrc/fused_stream.cu``
     (CUDA tensors with ``idx`` and ``dst``, no ``tiles``): the layout-free
     form, which the distributed engine calls on its receive table
@@ -45,7 +52,7 @@ tables) and :func:`add_weight_to_key` (the ``int64`` packed words of
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -61,6 +68,14 @@ ENV_FUSED = "REPRO_FUSED"
 #: csrc/segment_combine.cu); 16384 eight-byte ones (144 KB)
 MAX_CHUNK = 32768
 WIDE_MAX_CHUNK = 16384
+
+#: the lane form: destinations between two offsets of the edge copy, the
+#: most lanes a block folds, and the shared memory a block's accumulators
+#: and touched flags may take so that two blocks fit an SM (233,472 B, less
+#: 1 KB reserved a block)
+LANE_FINE = 128
+LANE_MAX_GROUP = 16
+LANE_SMEM = 113_664
 
 
 def max_chunk(dtype: torch.dtype) -> int:
@@ -126,6 +141,126 @@ def global_edges(tile_src_part, tile_dst_part, edge_src_local, edge_dst_local,
     return idx, dst
 
 
+class LaneEdges(NamedTuple):
+    """The lane form's copy of a tile form's edges (:func:`build_lane_edges`):
+    the valid edges of each destination partition sorted by destination, a
+    destination's edges in gather order.
+
+    ``rank`` (int32 ``[k*q + 1]``) orders the table's entries by the number
+    of the copy's edges they source, most first (ties by index): the
+    interleaved table holds entry ``v`` at row ``rank[v]``.  ``src`` (int32)
+    each edge's source row, ``rank[clamp(tile_src_part * q +
+    edge_src_local, 0, k*q)]``; ``dst`` (int32) its destination within its
+    partition; ``w`` (f32) its weight or None; ``off`` (int64 ``[k *
+    ceil(q / fine) + 1]``) the offsets of each ``fine`` destinations of a
+    partition.  ``edge_valid`` and ``w_from`` are the arrays it was built
+    from: a lane launch takes it only with those, and with a table of
+    ``k*q + 1`` entries."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    w: Optional[torch.Tensor]
+    off: torch.Tensor
+    rank: torch.Tensor
+    fine: int
+    edge_valid: torch.Tensor
+    w_from: Optional[torch.Tensor]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.src, self.dst, self.w, self.off, self.rank)
+                   if t is not None)
+
+
+def _lane_order(tiles: EdgeTiles, edge_valid):
+    """``(e, part, dst)``, int64: the gather-order indices of the edges with
+    ``edge_valid`` and a destination in ``[0, q)`` (the others fold
+    nothing), stably sorted by (destination partition, destination), and
+    their destination partitions and local destinations."""
+    q, et = int(tiles.q), int(tiles.edge_tile)
+    k = tiles.part_tile_off.shape[0] - 1
+    tile_dst = torch.repeat_interleave(
+        torch.arange(k, device=edge_valid.device), tiles.part_tile_off.diff())
+    local = tiles.edge_dst_local
+    keep = edge_valid.to(torch.bool) & (local >= 0) & (local < q)
+    e = keep.nonzero().squeeze(1)
+    del keep
+    part = tile_dst[e // et]
+    dst = local[e].to(torch.int64)
+    order = torch.sort(part * q + dst, stable=True).indices
+    return e[order], part[order], dst[order]
+
+
+def build_lane_edges(tiles: EdgeTiles, edge_valid, w=None,
+                     fine: int = LANE_FINE) -> LaneEdges:
+    """:class:`LaneEdges` of ``tiles`` on their device: the edges of
+    :func:`_lane_order`, with ``w`` (gather order, or None) in the same
+    order, and the table's rows ranked by how many of them each entry
+    sources."""
+    q, et = int(tiles.q), int(tiles.edge_tile)
+    k = tiles.part_tile_off.shape[0] - 1
+    dev = edge_valid.device
+    n_fine = -(-q // fine)
+    e, part, dst = _lane_order(tiles, edge_valid)
+    src = (tiles.tile_src_part[e // et].to(torch.int64) * q
+           + tiles.edge_src_local[e]).clamp_(0, k * q)
+    counts = torch.bincount(part * n_fine + dst // fine,
+                            minlength=k * n_fine)
+    off = torch.zeros(k * n_fine + 1, dtype=torch.int64, device=dev)
+    off[1:] = counts.cumsum(0)
+    by_use = torch.sort(-torch.bincount(src, minlength=k * q + 1),
+                        stable=True).indices
+    rank = torch.empty(k * q + 1, dtype=torch.int64, device=dev)
+    rank[by_use] = torch.arange(k * q + 1, device=dev)
+    return LaneEdges(rank[src].to(torch.int32), dst.to(torch.int32),
+                     w[e].contiguous() if w is not None else None, off,
+                     rank.to(torch.int32), fine, edge_valid, w)
+
+
+def with_lane_weights(le: LaneEdges, tiles: EdgeTiles, w) -> LaneEdges:
+    """``le`` (built from ``tiles``) with the weights ``w`` (gather order)
+    in its edges' order; its other arrays are ``le``'s own, not copies."""
+    e = _lane_order(tiles, le.edge_valid)[0]
+    return le._replace(w=w[e].contiguous(), w_from=w)
+
+
+def lane_group(lanes: int) -> int:
+    """Lanes one block of the lane form folds: the largest power of two
+    that divides ``lanes``, at most ``LANE_MAX_GROUP``."""
+    return min(lanes & -lanes, LANE_MAX_GROUP)
+
+
+def lane_width(group: int, itemsize: int, q: int,
+               fine: int = LANE_FINE) -> int:
+    """Destinations a block of the lane form holds for ``group`` lanes of
+    ``itemsize``-byte accumulators: the most multiples of ``fine`` whose
+    rows (``width + 1`` accumulators and ``width + 4`` touched bytes a lane)
+    fit ``LANE_SMEM``, at most q rounded up to ``fine``."""
+    most = (LANE_SMEM // group - itemsize - 4) // (itemsize + 1)
+    return max(fine, min(most // fine, -(-q // fine)) * fine)
+
+
+def ref_interleave_lanes(table, table_valid, rank=None):
+    """Plain version of ``fused_dc_interleave``: ``[B, M]`` tables and
+    validity to the ``[M, B]`` table and the ``[M, ceil(B / 32)]`` int32
+    masks whose bit ``b % 32`` of word ``b // 32`` is lane ``b``'s
+    validity; entry ``v`` at row ``rank[v]`` (``[M]``; None: row ``v``)."""
+    lanes, m = table.shape
+    dev = table.device
+    rows = (torch.arange(m, device=dev) if rank is None
+            else rank.to(torch.int64))
+    bits = M.as_bits(table)
+    il = torch.empty((m, lanes), dtype=bits.dtype, device=dev)
+    il[rows] = bits.t()
+    words = -(-lanes // 32)
+    flags = torch.zeros((m, words * 32), dtype=torch.int64, device=dev)
+    flags[:, :lanes] = table_valid.t().to(torch.int64)
+    mask = (flags.view(m, words, 32)
+            << torch.arange(32, device=dev)).sum(-1)
+    out = torch.empty((m, words), dtype=torch.int32, device=dev)
+    out[rows] = (mask - ((mask >> 31) << 32)).to(torch.int32)
+    return M.from_bits(il, table.dtype), out
+
+
 def ref_fused_scatter_fold(mono, table, table_valid, idx, edge_valid, dst,
                            num_segments: int, apply_weight=None, w=None):
     """Plain PyTorch version with :func:`fused_scatter_fold`'s contract,
@@ -159,9 +294,13 @@ def _kernel_codes(table, monoid: str, apply_weight, w, ne: int) -> tuple:
 
 
 def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
-                  monoid: str, tiles: EdgeTiles, apply_weight=None, w=None):
+                  monoid: str, tiles: EdgeTiles, apply_weight=None, w=None,
+                  lane_edges: Optional[LaneEdges] = None):
     """Launch ``csrc/fused_dc.cu`` on the current stream: ``fused_dc`` for
-    a ``[M]`` table, its lane form ``fused_dc_lanes`` for ``[B, M]``."""
+    a ``[M]`` table; for ``[B, M]``, ``fused_dc_interleave`` then
+    ``fused_dc_lanes`` over ``lane_edges``, which must have been built
+    (:func:`build_lane_edges`) from ``tiles``, this ``edge_valid`` and,
+    with an edge function, this ``w``."""
     ns, shape = int(num_segments), tuple(table.shape)
     dev = table.device
     if len(shape) not in (1, 2) or 0 in shape:
@@ -188,19 +327,52 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
     codes = _kernel_codes(table, monoid, apply_weight, w, ne)
     acc = torch.empty(shape[:-1] + (ns,), dtype=table.dtype, device=dev)
     touched = torch.empty(shape[:-1] + (ns,), dtype=torch.bool, device=dev)
-    edges = (tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
-             edge_valid.data_ptr(),
-             w.data_ptr() if apply_weight is not None else None,
-             tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(),
-             k, q, et, min(q, max_chunk(table.dtype)), ns)
     outs = (acc.data_ptr(), touched.data_ptr(), _build.stream_handle(dev))
     if lanes is None:
-        _build.FUSED_DC.launch(table.data_ptr(), table_valid.data_ptr(), m,
-                               *edges, *codes, *outs)
-    else:
-        _build.FUSED_DC_LANES.launch(
-            table.data_ptr(), table_valid.data_ptr(), m, m, *edges, lanes,
-            ns, *codes, *outs)
+        _build.FUSED_DC.launch(
+            table.data_ptr(), table_valid.data_ptr(), m,
+            tiles.edge_src_local.data_ptr(), tiles.edge_dst_local.data_ptr(),
+            edge_valid.data_ptr(),
+            w.data_ptr() if apply_weight is not None else None,
+            tiles.tile_src_part.data_ptr(), tiles.part_tile_off.data_ptr(),
+            k, q, et, min(q, max_chunk(table.dtype)), ns, *codes, *outs)
+        return acc, touched
+    wt = w if apply_weight is not None else None
+    le = lane_edges
+    if le is None:
+        raise ValueError("the lane form reads the edges' lane copy: pass "
+                         "lane_edges=build_lane_edges(tiles, edge_valid, w)")
+    if le.edge_valid is not edge_valid or (wt is not None
+                                           and le.w_from is not wt):
+        raise ValueError("lane_edges were built from another edge_valid or "
+                         "w than this call's")
+    n_fine = -(-q // le.fine)
+    if m != k * q + 1:
+        raise ValueError(f"the lane form takes a table of k*q + 1 = "
+                         f"{k * q + 1} entries (its edge copy's rows), got "
+                         f"{m}")
+    _build.check_cuda(le.off, "lane_edges.off", torch.int64,
+                      (k * n_fine + 1,), dev)
+    _build.check_cuda(le.rank, "lane_edges.rank", torch.int32, (m,), dev)
+    _build.check_cuda(le.src, "lane_edges.src", torch.int32, device=dev)
+    _build.check_cuda(le.dst, "lane_edges.dst", torch.int32, le.src.shape,
+                      dev)
+    if wt is not None:
+        _build.check_cuda(le.w, "lane_edges.w", torch.float32, le.src.shape,
+                          dev)
+    size = table.element_size()
+    group = lane_group(lanes)
+    table_il = torch.empty((m, lanes), dtype=table.dtype, device=dev)
+    mask = torch.empty((m, -(-lanes // 32)), dtype=torch.int32, device=dev)
+    stream = _build.stream_handle(dev)
+    _build.FUSED_DC_INTERLEAVE.launch(
+        table.data_ptr(), table_valid.data_ptr(), m, m, lanes, size,
+        le.rank.data_ptr(), table_il.data_ptr(), mask.data_ptr(), stream)
+    _build.FUSED_DC_LANES.launch(
+        table_il.data_ptr(), mask.data_ptr(), m, lanes, le.src.data_ptr(),
+        le.dst.data_ptr(), le.w.data_ptr() if wt is not None else None,
+        le.off.data_ptr(), k, q, le.fine,
+        lane_width(group, size, q, le.fine), group, ns, ns, *codes, *outs)
     return acc, touched
 
 
@@ -236,7 +408,8 @@ def fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
 
 def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                        num_segments: int, *, monoid: str = "add",
-                       tiles: EdgeTiles = None, apply_weight=None, w=None):
+                       tiles: EdgeTiles = None, apply_weight=None, w=None,
+                       lane_edges: Optional[LaneEdges] = None):
     """Gather-from-table + edge function + segmented fold, fused.
 
     Contract (the reference's ``fused_dc``):
@@ -256,6 +429,8 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                    launches the layout-free kernel (one ``[M]`` table).
       apply_weight, w: optional edge function ``f(vals, w)`` and [NE]
                    weights.
+      lane_edges:  CUDA lanes only, and needed there: the lane form's edge
+                   copy of ``tiles`` (:func:`build_lane_edges`).
     Returns:
       acc [num_segments] monoid fold, touched [num_segments] bool (with a
       leading [B] for B lanes).
@@ -278,5 +453,6 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                                      num_segments, monoid,
                                      apply_weight=apply_weight, w=w)
         return fused_dc_cuda(table, table_valid, edge_valid, num_segments,
-                             monoid, tiles, apply_weight=apply_weight, w=w)
+                             monoid, tiles, apply_weight=apply_weight, w=w,
+                             lane_edges=lane_edges)
     raise ValueError(f"no fused DC step for device {table.device}")

@@ -26,6 +26,9 @@ kernel's name.
 """
 from __future__ import annotations
 
+import time
+import weakref
+
 import numpy as np
 import torch
 
@@ -33,8 +36,9 @@ from ..core import monoid as M
 from ..obs.tracing import kernel_scope
 from .dc_gather import dc_gather, dc_pieces, ref_dc_gather
 from .fold_block import blocked_segment_fold, segment_fold
-from .fused_step import (EdgeTiles, fused_scatter_fold, global_edges,
-                         ref_fused_scatter_fold)
+from .fused_step import (EdgeTiles, LaneEdges, build_lane_edges,
+                         fused_scatter_fold, global_edges,
+                         ref_fused_scatter_fold, with_lane_weights)
 from .segment_combine import ref_segment_combine, segment_combine
 from .spmv_block import ref_spmv_block, spmv_block
 
@@ -134,6 +138,78 @@ def _check_edge_dst(layout, tiles: "_TileGeometry", edge_valid) -> None:
                          "destination partition")
 
 
+class LaneCopy:
+    """A layout's arrays for the fused lane form on one device, which every
+    :class:`FusedDCKernel` bound to that layout there shares
+    (:func:`lane_copy`): the edges' validity and weights on the device, and
+    the edge copy (:class:`LaneEdges`), built at the first lane call, and
+    its weights at the first weighted one.  ``build_s`` is the time the
+    builds took."""
+
+    def __init__(self, layout, device):
+        self.sources = self.sources_of(layout)
+        self.edge_valid = _on_device(layout.edge_valid, device, torch.bool)
+        self.edge_w = None
+        self.edges = self.weighted = None
+        self.build_s = 0.0
+
+    @staticmethod
+    def sources_of(layout) -> tuple:
+        """The layout's arrays a copy is built from: a copy serves the
+        layout while these are the same objects."""
+        return (layout.edge_valid, layout.edge_w, layout.edge_src_local,
+                layout.edge_dst_local, layout.tile_src_part,
+                layout.tile_dst_part)
+
+    def weights(self, layout) -> torch.Tensor:
+        """``layout.edge_w`` on the device, moved there at the first call."""
+        if self.edge_w is None:
+            self.edge_w = _on_device(layout.edge_w, self.edge_valid.device)
+        return self.edge_w
+
+    def get(self, tiles: EdgeTiles, weighted: bool) -> LaneEdges:
+        """The copy of ``tiles`` (this layout's on this device), with
+        ``edge_w`` in the copy's order when ``weighted``."""
+        if self.edges is None or (weighted and self.weighted is None):
+            t0 = time.perf_counter()
+            if self.edges is None:
+                self.edges = build_lane_edges(tiles, self.edge_valid)
+            if weighted:
+                self.weighted = with_lane_weights(self.edges, tiles,
+                                                  self.edge_w)
+            if self.edge_valid.is_cuda:
+                torch.cuda.synchronize(self.edge_valid.device)
+            self.build_s += time.perf_counter() - t0
+        return self.weighted if weighted else self.edges
+
+    def nbytes(self) -> int:
+        """The bytes the copy holds (its weights once built), each array
+        once."""
+        return ((self.edges.nbytes() if self.edges is not None else 0)
+                + (self.weighted.w.numel() * 4 if self.weighted is not None
+                   else 0))
+
+
+#: (id(layout), device) -> its LaneCopy, dropped with the layout
+_LANE_COPIES = {}
+
+
+def lane_copy(layout, device) -> LaneCopy:
+    """The :class:`LaneCopy` of ``layout`` on ``device``: one a layout and
+    device, kept as long as the layout lives, and made anew where one of
+    the layout's arrays it was built from was replaced."""
+    device = torch.device(device)
+    key = (id(layout), device.type, device.index)
+    copy = _LANE_COPIES.get(key)
+    if copy is None:
+        weakref.finalize(layout, _LANE_COPIES.pop, key, None)
+    if copy is None or any(
+            a is not b for a, b in zip(copy.sources,
+                                       LaneCopy.sources_of(layout))):
+        copy = _LANE_COPIES[key] = LaneCopy(layout, device)
+    return copy
+
+
 class FusedDCKernel(_TileGeometry):
     """Fused DC scatter→fold bound to a layout: ``(table, table_valid) ->
     (acc, touched)`` over ``[n_pad + 1]`` (or ``[B, n_pad + 1]``).
@@ -148,7 +224,13 @@ class FusedDCKernel(_TileGeometry):
     ``apply_weight`` is engine-configured:
     :class:`repro_torch.core.engine.Engine` passes it, under the same
     condition the reference applies it, and the layout's weights go to the
-    device only then."""
+    device only then.
+
+    The lane form on a card reads :class:`LaneEdges`, built on the card at
+    the first ``[B, M]`` call (:meth:`lane_edges`) and kept, with the
+    validity and weights it was built from, in the layout's
+    :class:`LaneCopy` (``lane_copy``), which every kernel bound to the
+    layout on this device shares."""
 
     def __init__(self, layout, monoid_name: str, dtype: torch.dtype,
                  device, plain: bool = False, apply_weight=None):
@@ -158,11 +240,11 @@ class FusedDCKernel(_TileGeometry):
         self.plain = plain
         self.n_pad = layout.n_pad
         self.edge_src_local = _on_device(layout.edge_src_local, self.device)
-        self.edge_valid = _on_device(layout.edge_valid, self.device,
-                                     torch.bool)
+        self.lane_copy = lane_copy(layout, self.device)
+        self.edge_valid = self.lane_copy.edge_valid
         _check_edge_dst(layout, self, self.edge_valid)
         self.apply_weight = apply_weight
-        self.edge_w = (_on_device(layout.edge_w, self.device)
+        self.edge_w = (self.lane_copy.weights(layout)
                        if apply_weight is not None else None)
         self.tiles = EdgeTiles(self.edge_src_local, self.edge_dst_local,
                                self.tile_src_part, self.part_tile_off,
@@ -175,6 +257,11 @@ class FusedDCKernel(_TileGeometry):
                 self.edge_dst_local, self.edge_valid, q=self.q,
                 edge_tile=self.edge_tile, n_pad=self.n_pad)
 
+    def lane_edges(self) -> LaneEdges:
+        """The lane form's edge copy of this layout (with ``edge_w`` when an
+        edge function applies), from the layout's :class:`LaneCopy`."""
+        return self.lane_copy.get(self.tiles, self.apply_weight is not None)
+
     def __call__(self, table, table_valid):
         aw = self.apply_weight
         w = self.edge_w if aw is not None else None
@@ -184,10 +271,12 @@ class FusedDCKernel(_TileGeometry):
                     M.make(self.monoid, self.dtype), table, table_valid,
                     self.edge_src, self.edge_valid, self.edge_dst,
                     self.n_pad + 1, apply_weight=aw, w=w)
+            lanes = table.dim() == 2 and table.is_cuda
             return fused_scatter_fold(
                 table, table_valid, self.edge_src, self.edge_valid,
                 self.edge_dst, self.n_pad + 1, monoid=self.monoid,
-                tiles=self.tiles, apply_weight=aw, w=w)
+                tiles=self.tiles, apply_weight=aw, w=w,
+                lane_edges=self.lane_edges() if lanes else None)
 
 
 class FusedStreamKernel:
@@ -291,7 +380,8 @@ class ScatterKernel:
             sms = torch.cuda.get_device_properties(
                 self.device).multi_processor_count
             off = dc_pieces(layout.png_tile_part, q=self.q,
-                            msg_tile=self.msg_tile, blocks=sms)
+                            msg_tile=self.msg_tile, blocks=sms,
+                            value_bytes=dtype.itemsize)
             if off is not None:
                 self.pieces = torch.from_numpy(off).to(self.device)
 

@@ -20,9 +20,12 @@ from repro_torch.kernels.dc_gather import (dc_gather_cuda, dc_pieces,
                                            ref_dc_gather)
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
 from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
-                                            add_weight_to_key, fused_dc_cuda,
+                                            add_weight_to_key,
+                                            build_lane_edges, fused_dc_cuda,
                                             fused_scatter_fold, global_edges,
-                                            ref_fused_scatter_fold)
+                                            lane_group, lane_width,
+                                            ref_fused_scatter_fold,
+                                            ref_interleave_lanes)
 from repro_torch.kernels.ops import (FusedDCKernel, FusedStreamKernel,
                                      GatherKernel, ScatterKernel, SpmvKernel)
 from repro_torch.kernels.segment_combine import (ref_segment_combine,
@@ -678,6 +681,7 @@ def test_fused_dc_lanes_match_plain(dev, layouts, layout, lanes, aligned):
     idx, dst = global_edges(kern.tile_src_part, kern.tile_dst_part, src_local,
                             dst_local, edge_valid, q=L.q,
                             edge_tile=L.edge_tile, n_pad=L.n_pad)
+    le = build_lane_edges(tiles, edge_valid, w)
     ns = L.n_pad + 1
     cases = [(m, d, None) for m, d in LANE_CASES]
     cases += [("min", "float32", add_weight)]
@@ -690,7 +694,7 @@ def test_fused_dc_lanes_match_plain(dev, layouts, layout, lanes, aligned):
         wt = w if fn is not None else None
         before = (_build.FUSED_DC.launches, _build.FUSED_DC_LANES.launches)
         got = fused_dc_cuda(table, tvalid, edge_valid, ns, monoid, tiles,
-                            apply_weight=fn, w=wt)
+                            apply_weight=fn, w=wt, lane_edges=le)
         torch.cuda.synchronize()
         assert (_build.FUSED_DC.launches,
                 _build.FUSED_DC_LANES.launches) == (before[0], before[1] + 1)
@@ -839,7 +843,8 @@ def test_batched_apps_on_the_card_match_the_cpu(dev, monkeypatch, fused):
     g = rmat(10, 8, seed=5, weighted=True)
     L = build_layout(g, k=8, edge_tile=64, msg_tile=32)
     sources = np.linspace(0, L.n - 1, 16).astype(np.int64)
-    lane_kernels = ((_build.FUSED_DC_LANES,) if fused == "1" else
+    lane_kernels = ((_build.FUSED_DC_INTERLEAVE, _build.FUSED_DC_LANES)
+                    if fused == "1" else
                     (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES))
     for app, keys in ((rt.bfs_multi, ("level", "parent")),
                       (rt.sssp_multi, ("dist",))):
@@ -942,6 +947,7 @@ def test_wide_fused_dc_matches_plain(dev, wide_layouts, layout, aligned):
                             edge_valid, q=L.q, edge_tile=L.edge_tile,
                             n_pad=L.n_pad)
     ns = L.n_pad + 1
+    le = build_lane_edges(tiles, edge_valid, w)
     mono = M.min_with_payload()
     for lanes in (None, 3, 16):
         shape = (ns,) if lanes is None else (lanes, ns)
@@ -953,12 +959,115 @@ def test_wide_fused_dc_matches_plain(dev, wide_layouts, layout, aligned):
             before = kk.launches
             got = fused_dc_cuda(table, tvalid, edge_valid, ns,
                                 "min_with_payload", tiles, apply_weight=fn,
-                                w=wt)
+                                w=wt, lane_edges=le)
             torch.cuda.synchronize()
             assert kk.launches == before + 1
             _assert_bit_exact(got, ref_fused_scatter_fold(
                 mono, table, tvalid, idx, edge_valid, dst, ns,
                 apply_weight=fn, w=wt))
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 16, 40])
+@pytest.mark.parametrize("layout", ["rmat", "wide", "sparse", "q32k"])
+def test_fused_dc_lane_groups_match_plain(dev, wide_layouts, layout, lanes):
+    """The lane form over the layout's edge copy, built once: ``lane_group``
+    lanes a block (W = 40: groups of 8 and two mask words), every 4-byte
+    monoid x dtype, f32 ``add_weight`` and the 8-byte min with and without
+    ``add_weight_to_key``, bit-exact with the plain lane version; the
+    interleaving launch bit-exact with ``ref_interleave_lanes``; one launch
+    of each a call."""
+    L = wide_layouts[layout]
+    rng = np.random.default_rng(70 + lanes)
+    kern = FusedDCKernel(L, "min", torch.float32, dev)
+    tiles, ev = kern.tiles, kern.edge_valid
+    w = torch.from_numpy(rng.random(L.num_edges, dtype=np.float32)
+                         * np.float32(10)).to(dev)
+    le = build_lane_edges(tiles, ev, w)
+    assert int(le.off[-1]) == le.src.numel() == int(ev.sum())
+    idx, dst = global_edges(kern.tile_src_part, kern.tile_dst_part,
+                            kern.edge_src_local, kern.edge_dst_local, ev,
+                            q=L.q, edge_tile=L.edge_tile, n_pad=L.n_pad)
+    ns = L.n_pad + 1
+    assert lane_group(lanes) == {1: 1, 4: 4, 16: 16, 40: 8}[lanes]
+    cases = [(m, DTYPES[d], None) for m, d in LANE_CASES]
+    cases += [("min", torch.float32, add_weight),
+              ("min_with_payload", torch.int64, None),
+              ("min_with_payload", torch.int64, add_weight_to_key)]
+    for monoid, dtype, fn in cases:
+        if dtype == torch.int64:
+            table = _packed(rng, lanes * ns, dev).view(lanes, ns)
+        else:
+            table = _payload(rng, lanes * ns, dtype, dev).view(lanes, ns)
+        tvalid = torch.from_numpy(rng.random((lanes, ns)) < 0.6).to(dev)
+        tvalid[0] = False
+        wt = w if fn is not None else None
+        before = (_build.FUSED_DC_INTERLEAVE.launches,
+                  _build.FUSED_DC_LANES.launches)
+        got = fused_dc_cuda(table, tvalid, ev, ns, monoid, tiles,
+                            apply_weight=fn, w=wt, lane_edges=le)
+        torch.cuda.synchronize()
+        assert (_build.FUSED_DC_INTERLEAVE.launches,
+                _build.FUSED_DC_LANES.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        _assert_bit_exact(got, ref_fused_scatter_fold(
+            M.make(monoid, dtype), table, tvalid, idx, ev, dst, ns,
+            apply_weight=fn, w=wt))
+        assert not got[1][0].any()
+        for rank in (le.rank, None):   # the copy's rows, and none
+            il = torch.empty((ns, lanes), dtype=dtype, device=dev)
+            mask = torch.empty((ns, -(-lanes // 32)), dtype=torch.int32,
+                               device=dev)
+            _build.FUSED_DC_INTERLEAVE.launch(
+                table.data_ptr(), tvalid.data_ptr(), ns, ns, lanes,
+                table.element_size(),
+                rank.data_ptr() if rank is not None else None,
+                il.data_ptr(), mask.data_ptr(), _build.stream_handle(dev))
+            torch.cuda.synchronize()
+            _assert_bit_exact((il, mask),
+                              ref_interleave_lanes(table, tvalid, rank))
+
+
+def test_fused_dc_lane_form_refuses_what_it_cannot_take(dev, layouts):
+    """No edge copy, an edge copy built from other arrays than the call's,
+    a table of other than k*q + 1 entries, and C-level shapes the lane fold
+    does not take (a group that does not divide the lanes, a width not a
+    multiple of fine, a sub-slice past shared memory), raise before a
+    launch."""
+    L = layouts["rmat"]
+    ns = L.n_pad + 1
+    fk = FusedDCKernel(L, "min", torch.float32, dev)
+    le = build_lane_edges(fk.tiles, fk.edge_valid)
+    table = torch.zeros((4, ns), device=dev)
+    valid = torch.ones((4, ns), dtype=torch.bool, device=dev)
+    w = torch.ones(L.num_edges, device=dev)
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    with pytest.raises(ValueError, match="lane copy"):
+        fused_dc_cuda(table, valid, fk.edge_valid, ns, "min", fk.tiles)
+    with pytest.raises(ValueError, match="built from"):
+        fused_dc_cuda(table, valid, fk.edge_valid.clone(), ns, "min",
+                      fk.tiles, lane_edges=le)
+    with pytest.raises(ValueError, match="built from"):
+        fused_dc_cuda(table, valid, fk.edge_valid, ns, "min", fk.tiles,
+                      apply_weight=add_weight, w=w, lane_edges=le)
+    with pytest.raises(ValueError, match="k\\*q \\+ 1"):
+        fused_dc_cuda(table[:, :-1].contiguous(), valid[:, :-1].contiguous(),
+                      fk.edge_valid, ns, "min", fk.tiles, lane_edges=le)
+    il = torch.zeros((ns, 4), device=dev)
+    mask = torch.zeros((ns, 1), dtype=torch.int32, device=dev)
+    acc = torch.empty((4, ns), device=dev)
+    touched = torch.empty((4, ns), dtype=torch.bool, device=dev)
+    width = lane_width(4, 4, L.q)
+    for lanes, fine, wd, group in ((4, le.fine, width, 3),
+                                   (4, le.fine, width + 1, 4),
+                                   (4, le.fine, 128 * le.fine, 4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.FUSED_DC_LANES.launch(
+                il.data_ptr(), mask.data_ptr(), ns, lanes, le.src.data_ptr(),
+                le.dst.data_ptr(), None, le.off.data_ptr(), L.k, L.q, fine,
+                wd, group, ns, ns, _build.MONOID_CODES["min"],
+                _build.DTYPE_CODES[torch.float32], 0, acc.data_ptr(),
+                touched.data_ptr(), _build.stream_handle(dev))
+    assert counts == {k.name: k.launches for k in _build.KERNELS}
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -1000,8 +1109,8 @@ def test_wide_segment_combine_matches_plain(dev, wide_layouts, layout,
 @pytest.mark.parametrize("layout", ["rmat", "wide", "q32k"])
 def test_wide_dc_gather_takes_the_l2_regime(dev, wide_layouts, layout,
                                             lanes):
-    """8-byte words: the L2 regime even where the pieces would stage 4-byte
-    ones, bit-exact, the identity INT64_MAX on inactive slots."""
+    """8-byte words without pieces: the L2 regime, bit-exact, the identity
+    INT64_MAX on inactive slots."""
     L = wide_layouts[layout]
     rng = np.random.default_rng(63)
     kern = ScatterKernel(L, "min_with_payload", torch.int64, dev)
@@ -1014,13 +1123,79 @@ def test_wide_dc_gather_takes_the_l2_regime(dev, wide_layouts, layout,
         dev).view(lead + (L.k, L.q))
     kk = _build.DC_GATHER if lanes is None else _build.DC_GATHER_LANES
     before = dict(kk.regimes)
-    got = dc_gather_cuda(x, active, *slots, **geo, pieces=kern.pieces)
+    got = dc_gather_cuda(x, active, *slots, **geo)
     torch.cuda.synchronize()
     assert {r: kk.regimes[r] - before[r] for r in before} == \
         {"l2": 1, "staged": 0}
     want = ref_dc_gather(x, active, *slots, **geo)
     _assert_bit_exact((got,), (want,))
     assert bool((got == 2**63 - 1).any())
+
+
+@pytest.fixture(scope="module")
+def half_row_layouts(wide_layouts, row_layouts):
+    """``q32k2``: k = 2 partitions of the main path's q = 32,768, with slots
+    enough for the 8-byte pieces; k = 2 at the largest q the 8-byte staged
+    regime takes (kMaxHalvesQ = 51,648) and at the next multiple of 32 (its
+    half rows would pass 232,448 B of shared memory)."""
+    rng = np.random.default_rng(12)
+    out = {**wide_layouts, "mt30": row_layouts["mt30"],
+           "q32k2": build_layout(rmat(16, 8, seed=6, weighted=True), k=2,
+                                 edge_tile=64, msg_tile=32)}
+    for name, n in (("q51648", 103296), ("q51680", 103360)):
+        src = np.repeat(np.arange(n), 4)
+        g = from_edges(src, rng.integers(0, n, len(src)), n=n, dedup=True)
+        out[name] = build_layout(g, k=2, q_mult=32, edge_tile=64,
+                                 msg_tile=32)
+    assert (out["q51648"].q, out["q51680"].q) == (51648, 51680)
+    return out
+
+
+# case: (layout, the regime its shape takes with pieces)
+WIDE_DC_CASES = {"q32k": ("q32k2", "staged"), "rmat": ("rmat", "staged"),
+                 "mt30": ("mt30", "staged"), "wide": ("wide", "l2"),
+                 "q51648": ("q51648", "staged"), "q51680": ("q51680", "l2"),
+                 "shuffled": ("rmat", "l2"), "unaligned": ("q32k2", "staged"),
+                 "malformed": ("rmat", "staged")}
+
+
+@pytest.mark.parametrize("lanes", [None, 3, 16])
+@pytest.mark.parametrize("case", sorted(WIDE_DC_CASES))
+def test_wide_dc_gather_stages_half_rows(dev, half_row_layouts, case, lanes):
+    """8-byte words with the layout's pieces: two blocks a piece, each
+    staging half of the rows (q % 32 == 0, q <= 51,648), bit-exact with
+    the plain version with every source, half and none active; ``q32k``'s
+    pieces hold sources in both halves; slot arrays off their boundaries
+    take one slot a thread; pieces that do not match the tiles (and tiles
+    outside [0, k)) read through L2 inside the kernel."""
+    name, regime = WIDE_DC_CASES[case]
+    L = half_row_layouts[name]
+    rng = np.random.default_rng(65)
+    kern = ScatterKernel(L, "min_with_payload", torch.int64, dev)
+    if case == "q32k":   # some piece's sources lie in both halves
+        off = kern.pieces.cpu().numpy() * L.msg_tile
+        local = L.png_src_local
+        assert any((local[a:b] < L.q // 2).any()
+                   and (local[a:b] >= L.q // 2).any()
+                   for a, b in zip(off[:-1], off[1:]))
+    slots, pieces = _dc_slot_arrays(rng, case, L, kern, dev)
+    geo = dict(k=L.k, q=L.q, msg_tile=L.msg_tile, monoid="min_with_payload")
+    lead = () if lanes is None else (lanes,)
+    kk = _build.DC_GATHER if lanes is None else _build.DC_GATHER_LANES
+    for density in (1.0, 0.5, 0.0):
+        x = _packed(rng, int(np.prod(lead + (L.n_pad,))), dev).view(
+            lead + (L.k, L.q))
+        active = torch.from_numpy(
+            rng.random(lead + (L.n_pad,)) < density).to(dev).view(
+            lead + (L.k, L.q))
+        want = ref_dc_gather(x, active, *slots, **geo)
+        for p in pieces:
+            before = dict(kk.regimes)
+            got = dc_gather_cuda(x, active, *slots, **geo, pieces=p)
+            torch.cuda.synchronize()
+            assert {r: kk.regimes[r] - before[r] for r in before} == \
+                {"l2": int(regime == "l2"), "staged": int(regime == "staged")}
+            _assert_bit_exact((got,), (want,))
 
 
 def test_wide_forms_refuse_other_monoids_and_edge_functions(dev, layouts):
@@ -1076,7 +1251,8 @@ def test_payload_apps_on_the_card_match_the_cpu(dev, monkeypatch, fused):
         assert np.array_equal(got[key], cpu[key]), key
     assert np.array_equal(got["dist"], rt.sssp(L, src)["dist"])
     sources = np.linspace(0, L.n - 1, 16).astype(np.int64)
-    lane_kernels = ((_build.FUSED_DC_LANES,) if fused == "1" else
+    lane_kernels = ((_build.FUSED_DC_INTERLEAVE, _build.FUSED_DC_LANES)
+                    if fused == "1" else
                     (_build.DC_GATHER_LANES, _build.SEGMENT_COMBINE_LANES))
     for app, keys in ((rt.sssp_parents_multi, ("dist", "parent")),
                       (rt.bfs_seeded_multi, ("level", "parent"))):
@@ -1086,8 +1262,8 @@ def test_payload_apps_on_the_card_match_the_cpu(dev, monkeypatch, fused):
         assert {k.name: k.launches for k in _build.KERNELS} == \
             {k.name: steps if k in lane_kernels else 0
              for k in _build.KERNELS}
-        if fused == "0":
-            assert _build.DC_GATHER_LANES.regimes["l2"] == steps
+        if fused == "0":   # 8-byte rows staged in halves
+            assert _build.DC_GATHER_LANES.regimes["staged"] == steps
         cpu = app(L, sources, device="cpu")
         for key in keys:
             assert np.array_equal(res[key], cpu[key]), key

@@ -4,7 +4,8 @@
 built from another checkout, in turns, on one NVIDIA GPU.
 
     python3 tools/ab_torch_kernels.py --baseline DIR [--scale 22] [--seed 0]
-        [--rounds 2] [--report results/ab_torch_kernels.json]
+        [--rounds 2] [--rows spmv,combine,...] [--report
+        results/ab_torch_kernels.json]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``); its ``src/repro_torch/csrc/
@@ -43,6 +44,19 @@ Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
             without them (the L2 regime), and a baseline of this tree's
             interface without them too; each row names the regimes this
             tree's calls took.
+  lanes     ``fused_dc``'s lane form at B = 16: PageRank's step (f32 add,
+            every source live) and SSSP-with-parents' (the 8-byte min with
+            ``add_weight_to_key``): the baseline's lane form (its tile form
+            a lane on ``blockIdx.y``, as before the edge copy, or this
+            tree's), this tree's, and as controls this tree's two launches
+            each alone (the interleaving, the fold over the edge copy) and
+            16 single-lane launches.
+  gather8   ``dc_gather`` on 8-byte words (SSSP-with-parents' composed
+            step), single lane and B = 16: the baseline kernel with this
+            tree's pieces (before the 8-byte staged regime it reads them
+            through L2), this tree's (staged in half rows), this tree's
+            without pieces (L2), and ``torch.index_select`` of x over the
+            slots' sources.
   fold      ``segment_fold`` on ``chip_smoke.py``'s three streams: 332,010
             messages (its SC stream at scale 22) whose ids are the
             destinations of edges drawn at random, into n_pad + 1 and
@@ -88,6 +102,16 @@ GATHER_FOUR_BYTE = ("x", "active", "png_src_local", "png_valid",
                     "png_tile_part", "piece_tiles", "n_pieces", "nm", "k",
                     "q", "msg_tile", "ident_bits", "out", "device", "regime",
                     "stream")
+# fused_dc's lane form before the edge copy: the tile form, a lane a
+# blockIdx.y
+FUSED_TILE_LANES = ("table", "table_valid", "table_len", "table_stride",
+                    "src_local", "dst_local", "valid", "w", "tile_src_part",
+                    "part_tile_off", "k", "q", "edge_tile", "chunk",
+                    "num_segments", "lanes", "out_stride", "monoid", "dtype",
+                    "edge_fn", "acc", "touched", "stream")
+
+
+ROWS = "spmv,combine,fused,lanes,gather,gather8,fold"
 
 
 def c_params(source: Path, name: str) -> tuple:
@@ -101,18 +125,26 @@ def c_params(source: Path, name: str) -> tuple:
                  for p in found.group(1).split(","))
 
 
-def baseline_kernel(kern, base_csrc: Path):
+def baseline_kernel(kern, base_csrc: Path, shares=None):
     """``(kernel, interface)``: ``kern``'s C entry built from the baseline's
-    source, bound with the argument types of the interface that source
-    declares: ``"this"`` (this tree's), ``"edge_range"`` (``fused_dc``
-    before the tile form), ``"slots"`` (``dc_gather`` before its staged
-    regime) or ``"four_byte"`` (``dc_gather`` staged, before 8-byte words).
-    Refuses any other."""
+    source (through ``shares``' library, for a second entry of a source),
+    bound with the argument types of the interface that source declares:
+    ``"this"`` (this tree's), ``"edge_range"`` (``fused_dc`` before the tile
+    form), ``"slots"`` (``dc_gather`` before its staged regime),
+    ``"four_byte"`` (``dc_gather`` staged, before 8-byte words) or
+    ``"tile_lanes"`` (``fused_dc_lanes`` before the edge copy).  Refuses any
+    other."""
     from repro_torch.kernels import _build
     src = base_csrc / kern.source.name
     params = c_params(src, kern.name)
     if params == c_params(kern.source, kern.name):
-        return _build.CudaKernel(kern.name, str(src), kern.argtypes), "this"
+        return _build.CudaKernel(kern.name, str(src), kern.argtypes,
+                                 shares=shares), "this"
+    if kern.name == "fused_dc_lanes" and params == FUSED_TILE_LANES:
+        P, I64, I32 = _build.P, _build.I64, _build.I32
+        return _build.CudaKernel(kern.name, str(src), (
+            P, P, I64, I64, P, P, P, P, P, P, I32, I32, I32, I32, I64, I32,
+            I64, I32, I32, I32, P, P, P), shares=shares), "tile_lanes"
     if kern.name == "fused_dc" and params == FUSED_EDGE_RANGE:
         P, I64, I32 = _build.P, _build.I64, _build.I32
         return _build.CudaKernel(kern.name, str(src), (
@@ -140,9 +172,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--rows", default=ROWS,
+                    help="the rows to time, comma-separated (default all: "
+                         f"{ROWS})")
     ap.add_argument("--report", default=str(ROOT / "results" /
                                             "ab_torch_kernels.json"))
     args = ap.parse_args()
+    rows = set(args.rows.split(","))
+    if not rows <= set(ROWS.split(",")):
+        raise SystemExit(f"ab_torch_kernels: unknown rows "
+                         f"{sorted(rows - set(ROWS.split(',')))}")
 
     import torch
     if not torch.cuda.is_available():
@@ -151,8 +190,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.graph import build_layout, rmat
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fused_step import (EdgeTiles, add_weight,
-                                                fused_dc_cuda, global_edges)
+    from repro_torch.kernels.fused_step import (EdgeTiles, _EDGE_FNS,
+                                                add_weight,
+                                                add_weight_to_key,
+                                                build_lane_edges,
+                                                fused_dc_cuda, global_edges,
+                                                lane_group, lane_width,
+                                                max_chunk)
     from repro_torch.backend.tuning import FOLD_CAP
     from repro_torch.kernels.dc_gather import dc_gather_cuda, identity_bits
     from repro_torch.kernels.fold_block import segment_fold_cuda
@@ -177,8 +221,19 @@ def main() -> int:
                       ("gather", _build.DC_GATHER),
                       ("fold", _build.SEGMENT_FOLD)):
         old[key], iface[key] = baseline_kernel(kern, base_csrc)
+    old["lanes"], iface["lanes"] = baseline_kernel(
+        _build.FUSED_DC_LANES, base_csrc, shares=old["fused"])
+    if iface["lanes"] == "this":
+        old["interleave"], _ = baseline_kernel(
+            _build.FUSED_DC_INTERLEAVE, base_csrc, shares=old["fused"])
+    if iface["gather"] == "this":
+        old["gather_lanes"], _ = baseline_kernel(
+            _build.DC_GATHER_LANES, base_csrc, shares=old["gather"])
     report["baseline_interfaces"] = iface
-    started = [k.start_build() for k in old.values()]
+    # a baseline source equal to this tree's builds one library, once
+    ours = {k.library_path() for k in _build.KERNELS}
+    started = [None if k.library_path() in ours else k.start_build()
+               for k in old.values()]
     _build.build_all()
     for k, st in zip(old.values(), started):
         k.finish_build(st)
@@ -267,7 +322,7 @@ def main() -> int:
           "partition_edges_max": int(part_edges.max()),
           "partition_with_most_edges": int(part_edges.argmax())})
     del valid_np
-    for weighted in (True, False):
+    for weighted in (True, False) if "spmv" in rows else ():
         w_time = vk.edge_w if weighted else None
         w_chk = w_int if weighted else None
         y_old = torch.empty((k, q), device=dev)
@@ -314,7 +369,7 @@ def main() -> int:
         return out
 
     nbytes = ne * (4 + 1 + 4) + nt * 4 + (k + 1) * 8 + k + L.n_pad * (4 + 1)
-    for name, dname, monoid in cases:
+    for name, dname, monoid in cases if "combine" in rows else ():
         vals = payload(ne, dtypes[dname])
         check_equal(segment_combine_cuda(
             vals, edge_valid, gk.edge_dst_local, gk.tile_src_part,
@@ -379,7 +434,7 @@ def main() -> int:
         return args, (acc, touched)
 
     nbytes = ns * 5 + ne * (4 + 4 + 1) + nt * 4 + (k + 1) * 8 + ns * 5
-    for name, dname, monoid, fn in (
+    for name, dname, monoid, fn in () if "fused" not in rows else (
             *((c[0], c[1], c[2], None) for c in cases),
             ("f32_min_add_weight", "f32", "min", add_weight)):
         table = payload(ns, dtypes[dname])
@@ -404,6 +459,104 @@ def main() -> int:
               "bytes": nbytes + extra_bytes,
               "bound_ms": bound_ms(nbytes + extra_bytes),
               "times": in_turns(fns, args.reps)})
+
+    # ---------------- lanes ----------------
+    lanes = 16
+    le = build_lane_edges(tiles, edge_valid, fk.edge_w)
+    live16 = torch.ones((lanes, ns), dtype=torch.bool, device=dev)
+
+    def packed(n):
+        """Packed min_with_payload words: random non-negative f32 keys, any
+        uint32 payload."""
+        keys = torch.rand(n, generator=gen, device=dev) * 1000
+        pay = torch.randint(0, 2**32, (n,), generator=gen, device=dev)
+        return (keys.view(torch.int32).to(torch.int64) << 32) | pay
+
+    def lane_outputs(table):
+        return (torch.empty((lanes, ns), dtype=table.dtype, device=dev),
+                torch.empty((lanes, ns), dtype=torch.bool, device=dev))
+
+    def codes_of(table, monoid, fn):
+        return (_build.MONOID_CODES[monoid],
+                _build.dtype_code(table.dtype, monoid), _EDGE_FNS[fn])
+
+    def two_launches(k_il, k_fold, table, monoid, fn):
+        """(interleave, fold, outputs): this tree's lane interface, each
+        launch alone, on buffers allocated once."""
+        acc, touched = lane_outputs(table)
+        size, group = table.element_size(), lane_group(lanes)
+        il = torch.empty((ns, lanes), dtype=table.dtype, device=dev)
+        mk = torch.empty((ns, 1), dtype=torch.int32, device=dev)
+        ia = (table.data_ptr(), live16.data_ptr(), ns, ns, lanes, size,
+              le.rank.data_ptr(), il.data_ptr(), mk.data_ptr(), stream())
+        fa = (il.data_ptr(), mk.data_ptr(), ns, lanes, le.src.data_ptr(),
+              le.dst.data_ptr(), le.w.data_ptr() if fn else None,
+              le.off.data_ptr(), k, q, le.fine,
+              lane_width(group, size, q, le.fine), group, ns, ns,
+              *codes_of(table, monoid, fn), acc.data_ptr(),
+              touched.data_ptr(), stream())
+        return (lambda: k_il.launch(*ia)), (lambda: k_fold.launch(*fa)), \
+            (acc, touched)
+
+    def old_lanes(table, monoid, fn):
+        """The baseline's lane form: one call, and its outputs."""
+        if iface["lanes"] == "this":
+            il, fold, out = two_launches(old["interleave"], old["lanes"],
+                                         table, monoid, fn)
+            return (lambda: (il(), fold())), out
+        acc, touched = lane_outputs(table)
+        args = (table.data_ptr(), live16.data_ptr(), ns, ns,
+                tiles.edge_src_local.data_ptr(),
+                tiles.edge_dst_local.data_ptr(), edge_valid.data_ptr(),
+                fk.edge_w.data_ptr() if fn else None,
+                tiles.tile_src_part.data_ptr(),
+                tiles.part_tile_off.data_ptr(), k, q, et,
+                min(q, max_chunk(table.dtype)), ns, lanes, ns,
+                *codes_of(table, monoid, fn), acc.data_ptr(),
+                touched.data_ptr(), stream())
+        return (lambda: old["lanes"].launch(*args)), (acc, touched)
+
+    for name, monoid, fn in () if "lanes" not in rows else (
+            ("f32_add", "add", None),
+                             ("int64_min_add_weight_to_key",
+                              "min_with_payload", add_weight_to_key)):
+        table = (payload(lanes * ns).view(lanes, ns) if fn is None
+                 else packed(lanes * ns).view(lanes, ns))
+        w = fk.edge_w if fn else None
+        old_call, old_out = old_lanes(table, monoid, fn)
+        old_call()
+
+        def new_call(t=table, m=monoid, f=fn, wt=w):
+            return fused_dc_cuda(t, live16, edge_valid, ns, m, tiles,
+                                 apply_weight=f, w=wt, lane_edges=le)
+        check_equal(new_call(), old_out, f"lanes {name}")
+        il_only, fold_only, _ = two_launches(
+            _build.FUSED_DC_INTERLEAVE, _build.FUSED_DC_LANES, table, monoid,
+            fn)
+        il_only()
+        lane_rows = [(table[i], live16[i]) for i in range(lanes)]
+        fns = {"old": old_call, "new": new_call,
+               "new_interleave_only": il_only, "new_fold_only": fold_only,
+               "new_single_lane_x16": lambda r=lane_rows, m=monoid, f=fn,
+               wt=w: [
+                   fused_dc_cuda(t, v, edge_valid, ns, m, tiles,
+                                 apply_weight=f, w=wt) for t, v in r]}
+        # what the lane form must move: the edge copy's source rows and
+        # local destinations (and weights) and its offsets, once for every
+        # lane, and each lane's table, validity, acc and touched
+        size = table.element_size()
+        nbytes = (le.src.numel() * (4 + 4 + (4 if fn else 0))
+                  + le.off.numel() * 8 + lanes * ns * (size + 1 + size + 1))
+        emit({"row": "lanes", "case": name,
+              "shape": {"lanes": lanes, "table": [lanes, ns], "edges": ne,
+                        "copy_edges": le.src.numel(),
+                        "copy_bytes": le.nbytes(),
+                        "group": lane_group(lanes),
+                        "width": lane_width(lane_group(lanes), size, q)},
+              "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+              "times": in_turns(fns, max(2, args.reps // 5))})
+        del fns, old_call, old_out, il_only, fold_only, lane_rows, table
+    del le, live16
 
     del fk, tiles, plain_tiles, plain_valid, plain_w
 
@@ -440,7 +593,8 @@ def main() -> int:
         return [r for r in regimes if regimes[r] != before[r]]
 
     nbytes = nm * (4 + 1 + 4) + (nm // mt) * 4 + L.n_pad * (4 + 1)
-    for name, density in (("f32_add_all_live", 1.0),
+    for name, density in () if "gather" not in rows else (
+            ("f32_add_all_live", 1.0),
                           ("f32_add_half_active", 0.5)):
         active = (torch.rand(L.n_pad, generator=gen, device=dev)
                   < density).view(k, q)
@@ -465,6 +619,55 @@ def main() -> int:
 
     del sk, x
 
+    # ---------------- gather8 ----------------
+    if iface["gather"] == "this" and "gather8" in rows:
+        sk8 = ScatterKernel(L, "min_with_payload", torch.int64, dev)
+        ident8 = identity_bits("min_with_payload", torch.int64)
+        png_src = (sk8.png_tile_part.repeat_interleave(mt) * q
+                   + sk8.png_src_local).to(torch.int64)
+        slots8 = (sk8.png_src_local, sk8.png_valid, sk8.png_tile_part)
+        for b in (1, 16):
+            lead = () if b == 1 else (b,)
+            x8 = packed(b * L.n_pad).view(lead + (k, q))
+            act8 = torch.ones(lead + (k, q), dtype=torch.bool, device=dev)
+            out8 = torch.empty(lead + (nm,), dtype=torch.int64, device=dev)
+            lane_args = () if b == 1 else (b, k * q, nm)
+            args8 = (x8.data_ptr(), act8.data_ptr(),
+                     *(a.data_ptr() for a in slots8), sk8.pieces.data_ptr(),
+                     sk8.pieces.numel() - 1, nm, k, q, mt, *lane_args,
+                     ident8, 8, out8.data_ptr(), x8.device.index,
+                     ctypes.byref(ctypes.c_int()), stream())
+            kern8 = old["gather"] if b == 1 else old["gather_lanes"]
+
+            def new8(p, x=x8, a=act8):
+                return dc_gather_cuda(x, a, *slots8, k=k, q=q, msg_tile=mt,
+                                      monoid="min_with_payload", pieces=p)
+            kern8.launch(*args8)
+            check_equal(new8(sk8.pieces), out8, f"gather8 lanes={b}")
+            check_equal(new8(None), out8, f"gather8 lanes={b} l2")
+            flat = x8.view(lead + (L.n_pad,))
+            fns = {"old": lambda a=args8, kk=kern8: kk.launch(*a),
+                   "new": lambda: new8(sk8.pieces),
+                   "new_l2": lambda: new8(None),
+                   "index_select": lambda f=flat: torch.index_select(
+                       f, -1, png_src)}
+            regs = _build.DC_GATHER.regimes if b == 1 else \
+                _build.DC_GATHER_LANES.regimes
+            before = dict(regs)
+            new8(sk8.pieces)
+            nbytes = (nm * (4 + 1) + (nm // mt) * 4
+                      + b * (L.n_pad * (8 + 1) + nm * 8))
+            emit({"row": "gather8", "case": f"min_with_payload lanes={b}",
+                  "shape": {"slots": nm, "k": k, "q": q, "lanes": b,
+                            "pieces": sk8.pieces.numel() - 1},
+                  "regimes": {"new": [r for r in regs
+                                      if regs[r] != before[r]]},
+                  "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                  "times": in_turns(fns, args.reps if b == 1
+                                    else max(2, args.reps // 5))})
+            del fns, x8, act8, out8, flat
+        del sk8, png_src
+
     # ---------------- fold ----------------
     rng = np.random.default_rng(args.seed)
     sc_ids = torch.from_numpy(g.indices[rng.integers(0, g.m, 332_010)]
@@ -485,7 +688,8 @@ def main() -> int:
                 touched.data_ptr(), vals.device.index, stream())
         return args, (acc, touched)
 
-    for name, fold_ns, valid, ids, monoid, dtype in (
+    for name, fold_ns, valid, ids, monoid, dtype in () \
+            if "fold" not in rows else (
             ("n_pad_plus_1", L.n_pad + 1, sc_valid, sc_ids, "min",
              torch.float32),
             ("ids_mod_4096", 4096, sc_valid, sc_ids % 4096, "min",
