@@ -145,11 +145,17 @@ Phases, in order; each prints lines that start with its name:
            lane bit-exact with a sequential dist run; the serve phase's
            first round again from a sharded ``GraphQueryServer``, each
            answer the unsharded server's (or, for a lane it seeded, the cold
-           run's); the layout-free ``fused_dc`` (``csrc/fused_stream.cu``)
-           at the dist DC step's shapes, every monoid and edge function
-           bit-exact with its plain version, f32 add and the int64 min with
-           ``add_weight_to_key`` timed four ways beside their bytes bound
-           and ``index_add_`` / ``scatter_reduce_`` of pre-gathered values;
+           run's); every ``fused_stream`` launch of those runs in the
+           partitioned regime; the layout-free ``fused_dc``
+           (``csrc/fused_stream.cu``) at the dist DC step's shapes, every
+           monoid and edge function bit-exact with its plain version in
+           both regimes, f32 add and the int64 min with
+           ``add_weight_to_key`` timed four ways in the partitioned regime
+           over the engine's ranges (as the engine launches it) beside the
+           stream regime (a control row), their bytes bound and
+           ``index_add_`` / ``scatter_reduce_`` of pre-gathered values, and
+           the share of the rank's valid edges whose dst repeats the
+           previous one's;
            the dist DC step by part (scatter, exchange, fold) beside the
            single-device fused DC step, and one SC step in its dense and
            ragged forms (equal results), with the wire bytes.
@@ -2695,12 +2701,36 @@ def main() -> int:
             say("dist", serve=rec["serve"])
             del srv, served, cold
 
-            # ---- the layout-free fused_dc regime at the dist DC step's
-            # shapes: the received bin table (D*S + 1 slots) gathered through
-            # in_msg_slot and folded into nv + 1 segments
+            # every fused_stream launch of the dist main path took the
+            # partitioned regime
+            regimes = dict(_build.FUSED_STREAM.regimes)
+            check(regimes == {"stream": 0,
+                              "parts": _build.FUSED_STREAM.launches},
+                  f"dist: fused_stream regimes {regimes} of "
+                  f"{_build.FUSED_STREAM.launches} launches: not all "
+                  "partitioned")
+            rec["fused_stream_regimes"] = regimes
+
+            # ---- the layout-free fused_dc at the dist DC step's shapes: the
+            # received bin table (D*S + 1 slots) gathered through
+            # in_msg_slot and folded into nv + 1 segments, in the partitioned
+            # regime over the engine's ranges (as the engine launches it) and
+            # in the stream regime (no parts: the control), each case
+            # bit-exact with the plain version in both
             A = pr_eng.arrays
             slot, ev, dstl = A["in_msg_slot"], A["in_valid"], A["in_dst_local"]
+            parts = A["in_parts"]
             m, ns, ne = SL.D * SL.S + 1, SL.nv + 1, SL.ne_d
+            dv = dstl[ev]
+            rec["flat_stream"] = {
+                "tile": parts.tile, "parts": parts.part_off.numel() - 1,
+                "valid_edges": int(dv.numel()),
+                # what the stream regime's run combining can fold: valid
+                # edges whose dst equals the previous valid edge's
+                "adjacent_equal_dst": float(
+                    (dv[1:] == dv[:-1]).sum()) / max(1, dv.numel() - 1)}
+            say("dist", flat_stream=rec["flat_stream"])
+            del dv
             err = {"4byte": 0.0, "int64": 0.0}
             cases = [(mo, dt, None) for mo in MONOIDS
                      for dt in (torch.float32, torch.int32, torch.uint32)]
@@ -2713,14 +2743,17 @@ def main() -> int:
                 tvalid = torch.rand(m, device=dev) < 0.5
                 w = A["in_w"] if fn is not None else None
                 width = "int64" if dtype == torch.int64 else "4byte"
-                err[width] = max(err[width], max_abs_err(
-                    fused_scatter_fold(table, tvalid, slot, ev, dstl, ns,
-                                       monoid=monoid, apply_weight=fn, w=w),
-                    ref_fused_scatter_fold(M.make(monoid, dtype), table,
-                                           tvalid, slot, ev, dstl, ns,
-                                           apply_weight=fn, w=w),
-                    f"fused_dc[flat] {monoid} {dtype}"
-                    + (f" {fn.__name__}" if fn else "")))
+                want = ref_fused_scatter_fold(M.make(monoid, dtype), table,
+                                              tvalid, slot, ev, dstl, ns,
+                                              apply_weight=fn, w=w)
+                for regime, p in (("parts", parts), ("stream", None)):
+                    err[width] = max(err[width], max_abs_err(
+                        fused_scatter_fold(table, tvalid, slot, ev, dstl, ns,
+                                           monoid=monoid, apply_weight=fn,
+                                           w=w, parts=p), want,
+                        f"fused_dc[flat] {regime} {monoid} {dtype}"
+                        + (f" {fn.__name__}" if fn else "")))
+                del want
             live = torch.ones(m, dtype=torch.bool, device=dev)
             slot64 = slot.to(torch.int64)
             rows = rec["kernels"] = {}
@@ -2748,19 +2781,28 @@ def main() -> int:
                            (lambda: acc.scatter_reduce_(0, dst64, vals, "amin",
                                                         include_self=True)))
                 width = "int64" if dtype == torch.int64 else "4byte"
+
+                def call(p, t=table, mo=monoid, f=fn, wt=w):
+                    return lambda: fused_scatter_fold(
+                        t, live, slot, ev, dstl, ns, monoid=mo,
+                        apply_weight=f, w=wt, parts=p)
                 rows[name] = {
                     "case": f"{monoid} {dtype}" + (f" {fn.__name__}" if fn
                                                    else ""),
-                    "shape": {"table": m, "edges": ne, "num_segments": ns},
-                    **kernel_times(lambda: fused_scatter_fold(
-                        table, live, slot, ev, dstl, ns, monoid=monoid,
-                        apply_weight=fn, w=w), 20),
+                    "regime": "parts",
+                    "shape": {"table": m, "edges": ne, "num_segments": ns,
+                              "parts": parts.part_off.numel() - 1,
+                              "tile": parts.tile},
+                    **kernel_times(call(parts), 20),
                     "plain_ms": median_ms(lambda: ref_fused_scatter_fold(
                         mono, table, live, slot, ev, dstl, ns, apply_weight=fn,
                         w=w), 3),
                     "library_ms": median_ms(library, 20),
                     "bytes": nbytes, "bound_ms": bound_ms(nbytes),
-                    "max_abs_err": err[width], "launches": flat[width]}
+                    "max_abs_err": err[width], "launches": flat[width],
+                    "controls": {"stream_regime": {
+                        "regime": "stream", **kernel_times(call(None), 20),
+                        "bound_ms": bound_ms(nbytes)}}}
                 say("dist", kernel=name, **rows[name])
                 del vals, dst64, acc, table
 
@@ -2980,8 +3022,10 @@ def main() -> int:
                    payload_launches["segment_combine_lanes"]),
     ]
     # the layout-free regime, launched by the dist phase's main path
-    kernels += [row(name, "fused_stream.cu", "fused_step.py:192",
-                    rec["launches"], rec["max_abs_err"], rec, rec["bound_ms"])
+    kernels += [dict(row(name, "fused_stream.cu", "fused_step.py:192",
+                         rec["launches"], rec["max_abs_err"], rec,
+                         rec["bound_ms"]), regime=rec["regime"],
+                     controls=controls(rec))
                 for name, rec in report["dist"]["kernels"].items()]
     for entry in kernels:
         check(entry["launches"] > 0, f"kernel {entry['name']} was not "

@@ -1,6 +1,6 @@
 // A ring of shared-memory stages that streams one destination partition's
 // edge tiles into a thread block, for the destination-major kernels
-// (spmv_block.cu, segment_combine.cu, fused_dc.cu).
+// (spmv_block.cu, segment_combine.cu, fused_dc.cu, fused_stream.cu).
 //
 // Why: a kernel that reads its edges with plain loads has as many bytes in
 // flight as its threads have loads outstanding, and a load that waits on a
@@ -185,19 +185,24 @@ struct Ring {
   }
 
   // Producer side, one whole warp: stream tiles [t0, t1) of edge_tile edges,
-  // skipping each tile whose tag fails live(tag), then end the stream.
+  // skipping each tile whose tag (tile_tag[t]; 0 unless TAGGED, and then
+  // tile_tag is not read) fails live(tag), then end the stream.
   // Tiles are taken 32 at a time (their tags read in one load, the next 32
   // prefetched); within those, each run of consecutive live tiles goes into
   // a stage in one step, so the warp's work per stage does not grow with the
   // number of tiles it holds.
-  template <typename Live>
+  template <bool TAGGED = true, typename Live>
   __device__ void produce(const int* __restrict__ tile_tag, long long t0,
                           long long t1, int edge_tile, Live live) {
     const int lane = threadIdx.x & 31;
     const unsigned all = 0xffffffffu;
     long long batch = t0 - 32;   // first tile of the current 32
     int tag_lane = -1;           // this lane's tile's tag in the current 32
-    int tag_next = t0 + lane < t1 ? tile_tag[t0 + lane] : -1;
+    auto tag_of = [&](long long t) {
+      if constexpr (TAGGED) return tile_tag[t];
+      else return 0;
+    };
+    int tag_next = t0 + lane < t1 ? tag_of(t0 + lane) : -1;
     unsigned pending = 0;        // live tiles of the current 32 not begun
     int cur = -1;                // tile being copied (index in the 32)
     int cur_off = 0;             // its edges already copied
@@ -215,7 +220,7 @@ struct Ring {
             batch += 32;
             tag_lane = tag_next;
             const long long tn = batch + 32 + lane;
-            tag_next = tn < t1 ? tile_tag[tn] : -1;
+            tag_next = tn < t1 ? tag_of(tn) : -1;
             pending = __ballot_sync(all, batch + lane < t1 && live(tag_lane));
           }
           if (pending == 0) break;

@@ -1,8 +1,9 @@
 // The destination-major kernels' common skeleton (spmv_block.cu,
-// segment_combine.cu, fused_dc.cu): one thread block owns a slice of one
-// destination partition in shared memory, folds that partition's edge tiles
-// into it and writes it once.  Here: the block's slice, the reset and
-// write-back of its accumulators and touched flags, a warp's register cache
+// segment_combine.cu, fused_dc.cu, and fused_stream.cu's partitioned
+// regime): one thread block owns a slice of one destination partition in
+// shared memory, folds that partition's edge tiles into it and writes it
+// once.  Here: the block's slice, the reset and write-back of its
+// accumulators and touched flags, a warp's register cache
 // of the destinations its edges hit most (HubCache) and the policy that
 // chooses between it and one atomic per edge (SharedFold), and the two
 // kernels every file launches, one that streams the tiles through
@@ -197,9 +198,12 @@ __device__ void write_back(const T* s_acc, const uint8_t* s_touched,
 // The tiles of a launch: destination partition p's tiles are
 // [part_tile_off[p], part_tile_off[p+1]), tile t's edges [t * edge_tile,
 // (t+1) * edge_tile), and its tag (the ring's tag) tile_src_part[t].  A
-// block holds chunk of a partition's q segments; segments [k*q,
-// num_segments) are written as the identity, untouched, by block 0 of each
-// lane.  Lane b's acc and touched start lane_segments * b entries in.
+// kFlat policy's launch (fused_stream.cu's partitioned regime) has no tags
+// (each is 0; tile_src_part is null) and edge offsets in part_tile_off, each
+// a multiple of edge_tile.  A block holds chunk of a partition's q segments;
+// segments [k*q, num_segments) are written as the identity, untouched, by
+// block 0 of each lane.  Lane b's acc and touched start lane_segments * b
+// entries in.
 struct Parts {
   const int* tile_src_part;
   const long long* part_tile_off;
@@ -208,6 +212,13 @@ struct Parts {
   int lanes = 1;
   long long lane_segments = 0;
 };
+
+// Partition p's first tile.
+template <class E>
+__device__ __forceinline__ long long first_tile(const Parts& P, int p) {
+  if constexpr (E::kFlat) return P.part_tile_off[p] / P.edge_tile;
+  else return P.part_tile_off[p];
+}
 
 constexpr int kMaxLanes = 65535;   // gridDim.y
 
@@ -229,6 +240,8 @@ constexpr int kMaxLanes = 65535;   // gridDim.y
 //                              stage is released and for all of a lane's
 //                              edges before any fold, so that they overlap;
 //   key(edge), value(edge)     the slot it folds into (-1: none) and what;
+//   kFlat                      whether its launch has edge offsets and no
+//                              tags (Parts);
 //   kLanes                     whether it takes lanes; only then are the lane
 //                              kernels built for it, and only then has it
 //   lane_stride                elements between two lanes' copies of each
@@ -301,9 +314,9 @@ __global__ void __launch_bounds__(kRingThreads) ring_kernel(
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == kConsumerWarps) {
-    ring.produce(P.tile_src_part, P.part_tile_off[b.p],
-                 P.part_tile_off[b.p + 1], P.edge_tile,
-                 [&](int tag) { return e.live(tag); });
+    ring.template produce<!E::kFlat>(
+        P.tile_src_part, first_tile<E>(P, b.p), first_tile<E>(P, b.p + 1),
+        P.edge_tile, [&](int tag) { return e.live(tag); });
   } else {
     SharedFold<E::kMonoid, T, E::kTouched> fold;
     int s = 0;
@@ -358,10 +371,11 @@ __global__ void __launch_bounds__(kDirectThreads) direct_kernel(
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long t1 = P.part_tile_off[b.p + 1];
+  const long long t1 = first_tile<E>(P, b.p + 1);
   SharedFold<E::kMonoid, T, E::kTouched> fold;
-  for (long long t = P.part_tile_off[b.p] + warp; t < t1; t += kDirectWarps) {
-    const int tag = P.tile_src_part[t];                  // warp-uniform
+  for (long long t = first_tile<E>(P, b.p) + warp; t < t1; t += kDirectWarps) {
+    int tag = 0;                                         // warp-uniform
+    if constexpr (!E::kFlat) tag = P.tile_src_part[t];
     if (!e.live(tag)) continue;
     const long long e0 = t * P.edge_tile;
     for (int base = 0; base < P.edge_tile; base += 32 * kDirectEdges) {

@@ -95,6 +95,7 @@ struct CombineEdges {
   static constexpr int kMonoid = M;
   static constexpr bool kTouched = true;
   static constexpr bool kLanes = true;
+  static constexpr bool kFlat = false;
   static constexpr int kArrays = 3;
   const void* arrays[4];   // vals, dst_local, valid
   int elems[4];

@@ -79,6 +79,7 @@ struct SpmvEdges {
   static constexpr int kMonoid = MONOID_ADD;
   static constexpr bool kTouched = false;
   static constexpr bool kLanes = false;
+  static constexpr bool kFlat = false;
   static constexpr int kArrays = WEIGHTED ? 4 : 3;
   const void* arrays[4];   // src_local, dst_local, valid, w
   int elems[4];

@@ -12,10 +12,12 @@ paper maps onto collectives one to one:
                                  for the ragged SC form)
   Gather (per rank, local)    -> the segmented fold over the statically
                                  resident dc_bin adjacency: the layout-free
-                                 fused kernel (``csrc/fused_stream.cu``) on
-                                 the received bin table, or under
-                                 ``REPRO_FUSED=0`` the slot gather and the
-                                 segment fold (``csrc/segment_fold.cu``)
+                                 fused kernel (``csrc/fused_stream.cu``,
+                                 partitioned regime: a destination
+                                 partition a block) on the received bin
+                                 table, or under ``REPRO_FUSED=0`` the slot
+                                 gather and the segment fold
+                                 (``csrc/segment_fold.cu``)
 
 DC mode sends values only (+ the validity flags, a packed bitmap by
 default); SC mode sends ``(value, dst)`` pairs, priced by the active edges.
@@ -54,7 +56,7 @@ from ..core import monoid as M
 from ..core.cost import CostModel
 from ..core.engine import _run_batched_loop, _tree_where, resolve_device
 from ..core.program import VertexProgram
-from ..kernels.fused_step import fused_enabled
+from ..kernels.fused_step import fused_enabled, part_ranges
 from ..kernels.ops import FoldKernel, FusedStreamKernel
 
 MODES = ("dc", "sc", "hybrid", "hybrid_pp")
@@ -252,7 +254,8 @@ def _bin_table(out_vals, flag, ident, mesh, dev_ax, compress=False,
 def _gather_bins(program, meta, rv, rf, A, fold, fused, batched):
     """The gather over the pre-written dc_bin: ``(acc, touched)`` over the
     rank's ``[.., nv]`` vertices.  Fused: the kernel gathers each edge's
-    value from the received table itself (one launch a lane), the table
+    value from the received table itself (one launch a lane, each over the
+    rank's destination-partition ranges ``A["in_parts"]``), the table
     cast off the wire type first (the cast commutes with the gather, so the
     composed path's ``rv[slot].to`` gives the same bits).  Composed: the
     slot gather into an ``[.., NEd]`` edge stream, then the fold."""
@@ -262,17 +265,18 @@ def _gather_bins(program, meta, rv, rf, A, fold, fused, batched):
     if fused is not None:
         table = rv.to(mono.dtype)
         w = A["in_w"] if aw is not None else None
+        parts = A["in_parts"]
         if batched:
             # one launch a lane: the static slot/validity/dst streams are
             # shared
             lanes = [fused(table[i], rf[i], slot, evalid_s, dst_s, nv + 1,
-                           w=w, apply_weight=aw)
+                           w=w, apply_weight=aw, parts=parts)
                      for i in range(table.shape[0])]
             acc = torch.stack([a for a, _ in lanes])
             touched = torch.stack([t for _, t in lanes])
         else:
             acc, touched = fused(table, rf, slot, evalid_s, dst_s, nv + 1,
-                                 w=w, apply_weight=aw)
+                                 w=w, apply_weight=aw, parts=parts)
     else:
         ev = _take(rv, slot).to(mono.dtype)                   # [.., NEd]
         evalid = _take(rf, slot) & evalid_s
@@ -469,6 +473,10 @@ class DistEngine:
     :class:`repro_torch.dist.Mesh`; every rank builds the engine with the
     same arguments and calls the same methods in the same order.  The
     rank copies only its own slices of ``sharded.arrays()`` to its device.
+    With the fused DC gather it derives there, once, the destination
+    partitions' ranges of its received edges (``arrays["in_parts"]``,
+    :func:`repro_torch.kernels.fused_step.part_ranges`), which raises if a
+    valid edge lies outside its partition's range.
     ``mode``: 'dc', 'sc', 'hybrid' (Eq. 1 per iteration) or 'hybrid_pp'
     (Eq. 1 per partition).  ``plain=True`` runs the kernels' plain versions
     on any device."""
@@ -511,6 +519,10 @@ class DistEngine:
         fold = _resolve_fold(program, plain)
         fused = _resolve_fused(program, plain)
         self.fused = fused is not None
+        if self.fused:
+            self.arrays["in_parts"] = part_ranges(
+                self.arrays["in_dst_local"], self.arrays["in_valid"],
+                sharded.q, kpd)
         wire = dict(wire_bf16=wire_bf16, wire_bitmap=wire_bitmap)
         self._dc = build_dc_step(program, self.meta, mesh, fold=fold,
                                  fused=fused, **wire)

@@ -12,7 +12,8 @@ Every C entry point returns 0 or a ``cudaError_t``; :meth:`CudaKernel.launch`
 raises on a non-zero code and otherwise adds one to the kernel's
 ``launches`` count, the evidence that a run went through the kernel.  A
 kernel with regimes chosen by shape in its C entry (``dc_gather``) also
-counts its launches by regime (``CudaKernel.regimes``).
+counts its launches by regime (``CudaKernel.regimes``); so does
+``fused_stream``, whose regime its wrapper chooses (``parts`` or not).
 
 The batched engine's lane forms (``fused_dc_interleave`` and
 ``fused_dc_lanes``, ``dc_gather_lanes``, ``segment_combine_lanes``) are
@@ -155,8 +156,10 @@ FUSED_DC = CudaKernel("fused_dc", "fused_dc.cu", (
 FUSED_STREAM = CudaKernel("fused_stream", "fused_stream.cu", (
     P, P, I64,          # table, table_valid, table_len
     P, P, P, P, I64,    # idx, edge_valid, dst, w, n
+    P, I32, I32, I32,   # part_off (null: the stream regime), parts, q, tile
     I64, I32, I32, I32,  # num_segments, monoid, dtype, edge_fn
-    P, P, I32, P))      # acc, touched, device index, stream
+    P, P, I32, P),      # acc, touched, device index, stream
+    regimes=("stream", "parts"))
 SEGMENT_FOLD = CudaKernel("segment_fold", "segment_fold.cu", (
     P, P, P,            # vals, valid, ids
     I64, I64, I32, I32,  # n, num_segments, monoid, dtype

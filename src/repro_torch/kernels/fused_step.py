@@ -39,11 +39,15 @@ Two versions, chosen by the device of the tensors:
   * :func:`fused_stream_cuda`, the CUDA kernel ``csrc/fused_stream.cu``
     (CUDA tensors with ``idx`` and ``dst``, no ``tiles``): the layout-free
     form, which the distributed engine calls on its receive table
-    (:class:`repro_torch.kernels.ops.FusedStreamKernel`).  The stream fold
-    of ``csrc/segment_fold.cu`` with the table gather and the edge function
-    in its message load: any ``dst``, one cooperative launch, in shared
-    memory up to 40,960 segments (22,752 for ``int64``), global atomics
-    past that.  One table a call.
+    (:class:`repro_torch.kernels.ops.FusedStreamKernel`).  One table a
+    call, in one of two regimes.  With ``parts``, a :class:`PartRanges`
+    (the engine's, from :func:`part_ranges`), each destination partition's
+    edges are one range of the stream, and one thread block folds a chunk
+    of a partition in shared memory, as the tile form does.  Without it,
+    any ``dst``: the stream fold of ``csrc/segment_fold.cu`` with the table
+    gather and the edge function in its message load, one cooperative
+    launch, in shared memory up to 40,960 segments (22,752 for ``int64``),
+    global atomics past that.
 
 The CUDA kernel knows two edge functions, :func:`add_weight` (float32
 tables) and :func:`add_weight_to_key` (the ``int64`` packed words of
@@ -76,6 +80,12 @@ WIDE_MAX_CHUNK = 16384
 LANE_FINE = 128
 LANE_MAX_GROUP = 16
 LANE_SMEM = 113_664
+
+
+#: the longest tile of the layout-free kernel's partitioned regime: one
+#: stage of its weighted ring (``RingFor<true>`` in csrc/fused_edges.cuh);
+#: a warp of its plain-load kernel takes one tile at a time
+PARTS_MAX_TILE = 1536
 
 
 def max_chunk(dtype: torch.dtype) -> int:
@@ -124,6 +134,74 @@ class EdgeTiles(NamedTuple):
     part_tile_off: torch.Tensor
     q: int
     edge_tile: int
+
+
+class PartRanges(NamedTuple):
+    """A stream's destination-partition edge ranges, on the edges' device:
+    what the layout-free kernel's partitioned regime reads beside ``idx``
+    and ``dst``.
+
+    Partition ``j``'s edges are ``[part_off[j], part_off[j+1])``
+    (``part_off``: int64 ``[parts + 1]``, nondecreasing multiples of
+    ``tile`` that divides the stream's length), and an edge there folds
+    only into a ``dst`` in ``[j * q, (j + 1) * q)``.  This is the
+    reference's function wherever every edge with ``edge_valid`` and a
+    ``dst`` in ``[0, num_segments)`` lies in the range of partition ``dst //
+    q < parts``: :func:`part_ranges` checks that when it derives them."""
+    part_off: torch.Tensor
+    q: int
+    tile: int
+
+
+def _gcd(x) -> int:
+    """The gcd of a 1-D int64 tensor's entries (0 for none), reduced in
+    halves on its device."""
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, x[:1]])
+        x = torch.gcd(x[0::2], x[1::2])
+    return int(x[0]) if x.numel() else 0
+
+
+def part_ranges(dst, edge_valid, q: int, parts: int) -> PartRanges:
+    """The :class:`PartRanges` of a stream whose valid edges come grouped
+    by destination partition ``dst // q`` in increasing order (a rank's
+    received edges in the layout's gather order), with torch ops on the
+    tensors' device; raises ``ValueError`` unless every valid edge lies in
+    the range of its partition, one of ``[0, parts)``.
+
+    Partition ``j`` starts at its first valid edge (at the next
+    partition's start where it has none).  The tile is the largest divisor
+    of at most ``PARTS_MAX_TILE`` of the gcd of the starts, of the valid
+    runs' starts (a valid edge after an invalid one: the layout pads each block
+    to its edge tile, and the next block starts there) and of the stream's
+    length; the last range ends at the first multiple of the tile past the
+    last valid edge.  On a layout's slice these are its ``blk_off``
+    boundaries where the gcd is the layout's edge tile."""
+    ne, dev = dst.shape[0], dst.device
+    valid = edge_valid.to(torch.bool)
+    e = valid.nonzero().squeeze(1)
+    part = dst[e].to(torch.int64).div(q, rounding_mode="floor")
+    first = torch.searchsorted(part, torch.arange(parts, device=dev))
+    runs = (valid[1:] & ~valid[:-1]).nonzero().squeeze(1) + 1
+    g = _gcd(torch.cat([e[first[first < e.numel()]], runs,
+                        torch.tensor([ne], device=dev)])) or PARTS_MAX_TILE
+    tile = next(t for t in range(min(g, PARTS_MAX_TILE), 0, -1)
+                if g % t == 0)
+    end = -(-(int(e[-1]) + 1) // tile) * tile if e.numel() else 0
+    part_off = torch.cat([e, torch.tensor([end], device=dev)])[first]
+    part_off = torch.cat([part_off, torch.tensor([end], device=dev)])
+    held = torch.searchsorted(part_off[1:], e, right=True)
+    stray = ((held != part) | (part < 0) | (part >= parts)).nonzero()
+    if stray.numel():
+        i = int(e[stray[0, 0]])
+        raise ValueError(
+            f"edge {i} (dst {int(dst[i])}, partition "
+            f"{int(dst[i]) // q}) lies outside its destination partition's "
+            f"range of the stream: the layout-free kernel's partitioned "
+            f"regime needs each partition's valid edges together, in "
+            f"partition order")
+    return PartRanges(part_off, q, tile)
 
 
 def global_edges(tile_src_part, tile_dst_part, edge_src_local, edge_dst_local,
@@ -378,10 +456,11 @@ def fused_dc_cuda(table, table_valid, edge_valid, num_segments: int,
 
 def fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
                       num_segments: int, monoid: str, apply_weight=None,
-                      w=None):
+                      w=None, parts: Optional[PartRanges] = None):
     """Launch ``csrc/fused_stream.cu`` on the current stream: the
-    layout-free fused step over ``idx`` and ``dst``, for one ``[M]``
-    table."""
+    layout-free fused step over ``idx`` and ``dst``, for one ``[M]`` table;
+    in the partitioned regime over ``parts``' ranges, else in the stream
+    regime."""
     ns, dev = int(num_segments), table.device
     if table.dim() != 1 or table.shape[0] < 1:
         raise ValueError(f"the layout-free fused DC kernel takes one [M] "
@@ -394,22 +473,36 @@ def fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
     _build.check_cuda(dst, "dst", torch.int32, (ne,), dev)
     if ns <= 0:
         raise ValueError(f"num_segments must be positive, got {ns}")
+    ranges = (None, 0, 0, 0)
+    if parts is not None:
+        off, q, tile = parts
+        _build.check_cuda(off, "parts.part_off", torch.int64, device=dev)
+        n_parts = off.shape[0] - 1 if off.dim() == 1 else 0
+        if n_parts < 1 or q < 1 or tile < 1 or ne % tile or n_parts * q > ns:
+            raise ValueError(
+                f"parts needs part_off [P + 1] with P >= 1, q >= 1, P * q <= "
+                f"num_segments and a tile dividing the {ne} edges; got "
+                f"part_off {tuple(off.shape)}, q={q}, tile={tile}, "
+                f"num_segments={ns}")
+        ranges = (off.data_ptr(), n_parts, q, tile)
     codes = _kernel_codes(table, monoid, apply_weight, w, ne)
     acc = torch.empty(ns, dtype=table.dtype, device=dev)
     touched = torch.empty(ns, dtype=torch.bool, device=dev)
     _build.FUSED_STREAM.launch(
         table.data_ptr(), table_valid.data_ptr(), m, idx.data_ptr(),
         edge_valid.data_ptr(), dst.data_ptr(),
-        w.data_ptr() if apply_weight is not None else None, ne, ns, *codes,
-        acc.data_ptr(), touched.data_ptr(), dev.index,
+        w.data_ptr() if apply_weight is not None else None, ne, *ranges, ns,
+        *codes, acc.data_ptr(), touched.data_ptr(), dev.index,
         _build.stream_handle(dev.index))
+    _build.FUSED_STREAM.count_regime(int(parts is not None))
     return acc, touched
 
 
 def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                        num_segments: int, *, monoid: str = "add",
                        tiles: EdgeTiles = None, apply_weight=None, w=None,
-                       lane_edges: Optional[LaneEdges] = None):
+                       lane_edges: Optional[LaneEdges] = None,
+                       parts: Optional[PartRanges] = None):
     """Gather-from-table + edge function + segmented fold, fused.
 
     Contract (the reference's ``fused_dc``):
@@ -431,6 +524,12 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
                    weights.
       lane_edges:  CUDA lanes only, and needed there: the lane form's edge
                    copy of ``tiles`` (:func:`build_lane_edges`).
+      parts:       CUDA with ``idx`` and ``dst`` only: the stream's
+                   destination-partition ranges (:class:`PartRanges`),
+                   which select the layout-free kernel's partitioned
+                   regime.  The plain version ignores them: where they
+                   hold (:func:`part_ranges` checks it), they do not change
+                   the function.
     Returns:
       acc [num_segments] monoid fold, touched [num_segments] bool (with a
       leading [B] for B lanes).
@@ -451,7 +550,11 @@ def fused_scatter_fold(table, table_valid, idx, edge_valid, dst,
         if tiles is None:
             return fused_stream_cuda(table, table_valid, idx, edge_valid, dst,
                                      num_segments, monoid,
-                                     apply_weight=apply_weight, w=w)
+                                     apply_weight=apply_weight, w=w,
+                                     parts=parts)
+        if parts is not None:
+            raise ValueError("parts are the layout-free kernel's: the tile "
+                             "form has its partitions in tiles")
         return fused_dc_cuda(table, table_valid, edge_valid, num_segments,
                              monoid, tiles, apply_weight=apply_weight, w=w,
                              lane_edges=lane_edges)

@@ -281,16 +281,18 @@ class FusedDCKernel(_TileGeometry):
 
 class FusedStreamKernel:
     """Layout-free fused gather→fold: ``(table, table_valid, idx,
-    edge_valid, dst, num_segments, w=None, apply_weight=None) -> (acc,
-    touched)``, the :func:`fused_scatter_fold` contract on one ``[M]``
-    table.
+    edge_valid, dst, num_segments, w=None, apply_weight=None, parts=None)
+    -> (acc, touched)``, the :func:`fused_scatter_fold` contract on one
+    ``[M]`` table.
 
     What :class:`FoldKernel` is to the fold, this is to the fused step: the
-    distributed engine's receive table (``rv[slot]``) has no tile or
-    partition structure, so each call takes the table, the slot indices and
-    the static validity, and one launch of ``csrc/fused_stream.cu`` fuses
-    the slot gather, the edge function and the fold.  The route follows the
-    table's device (the plain version on the CPU) unless ``plain=True``."""
+    distributed engine's receive table (``rv[slot]``) has no tile
+    structure, so each call takes the table, the slot indices and the
+    static validity, and one launch of ``csrc/fused_stream.cu`` fuses the
+    slot gather, the edge function and the fold; ``parts`` (the engine's
+    :class:`repro_torch.kernels.fused_step.PartRanges`) selects its
+    partitioned regime.  The route follows the table's device (the plain
+    version on the CPU, which ignores ``parts``) unless ``plain=True``."""
 
     def __init__(self, monoid_name: str, dtype: torch.dtype,
                  plain: bool = False):
@@ -302,7 +304,7 @@ class FusedStreamKernel:
             for on_card in (False, True)}
 
     def __call__(self, table, table_valid, idx, edge_valid, dst,
-                 num_segments, w=None, apply_weight=None):
+                 num_segments, w=None, apply_weight=None, parts=None):
         with kernel_scope(self._obs_scope[table.is_cuda]):
             if self.plain:
                 return ref_fused_scatter_fold(
@@ -311,7 +313,8 @@ class FusedStreamKernel:
                     apply_weight=apply_weight, w=w)
             return fused_scatter_fold(
                 table, table_valid, idx, edge_valid, dst, int(num_segments),
-                monoid=self.monoid, apply_weight=apply_weight, w=w)
+                monoid=self.monoid, apply_weight=apply_weight, w=w,
+                parts=parts)
 
 
 class GatherKernel(_TileGeometry):

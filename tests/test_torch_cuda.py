@@ -19,7 +19,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dc_gather import (dc_gather_cuda, dc_pieces,
                                            ref_dc_gather)
 from repro_torch.kernels.fold_block import segment_fold, segment_fold_cuda
-from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles, add_weight,
+from repro_torch.kernels.fused_step import (MAX_CHUNK, EdgeTiles,
+                                            PartRanges, add_weight,
                                             add_weight_to_key,
                                             build_lane_edges, fused_dc_cuda,
                                             fused_scatter_fold, global_edges,
@@ -1520,6 +1521,119 @@ def test_fused_stream_kernel_refuses_what_it_cannot_fold(dev):
     assert _build.FUSED_STREAM.launches == before
 
 
+# the partitioned regime: one block a chunk of a destination partition,
+# over PartRanges
+
+def _parted_stream(rng, lens, q, tile, m, device):
+    """A stream of destination partitions ``len(lens)`` of q destinations,
+    partition j's edges one range padded to a multiple of ``tile`` (lens[j]
+    real edges, 0: empty): valid edges land in their partition, the slots
+    idx mostly nondecreasing within it with some past the table (clamped);
+    invalid edges, a fifth of them, name the sentinel nv, another
+    partition's destination or any dst.  Returns ``(idx, edge_valid, dst,
+    PartRanges, nv)``."""
+    parts, nv = len(lens), len(lens) * q
+    idx, valid, dst, off = [], [], [], [0]
+    for j, c in enumerate(lens):
+        pad = -(-c // tile) * tile
+        i = np.sort(rng.integers(-3, m + 3, pad))
+        d = j * q + rng.integers(0, q, pad)
+        v = np.zeros(pad, bool)
+        v[:c] = rng.random(c) < 0.8
+        stray = ~v
+        d[stray] = np.where(rng.random(int(stray.sum())) < 0.5, nv,
+                            rng.integers(-5, nv + 5, int(stray.sum())))
+        idx.append(i), valid.append(v), dst.append(d)
+        off.append(off[-1] + pad)
+    cat = lambda xs, t: torch.from_numpy(np.concatenate(xs).astype(t)).to(
+        device)
+    parts_ = PartRanges(torch.tensor(off, dtype=torch.int64, device=device),
+                        q, tile)
+    return (cat(idx, np.int32), cat(valid, bool), cat(dst, np.int32), parts_,
+            nv)
+
+
+def _unaligned(t):
+    """A copy of t whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+PARTS_KERNEL_CASES = STREAM_KERNEL_CASES + [
+    ("min_with_payload", "int64", None),
+    ("min_with_payload", "int64", add_weight_to_key)]
+
+
+# q = 32,768: one block a four-byte partition, two an int64 one; 40,000: a
+# partial last chunk; 1,000: small partitions.  An empty partition among
+# them; tile 24 (not a multiple of 16) and unaligned arrays take plain loads.
+@pytest.mark.parametrize("form", ["ring", "tile24", "unaligned"])
+@pytest.mark.parametrize("q", [1000, 32768, 40000])
+@pytest.mark.parametrize("monoid,dtype,fn", PARTS_KERNEL_CASES)
+def test_fused_stream_parts_kernel_matches_plain(dev, monoid, dtype, fn, q,
+                                                 form):
+    rng = np.random.default_rng(73)
+    m = 60_000
+    tile = 24 if form == "tile24" else 256
+    lens = [40_000, 0, 70_000, 5, 25_000]
+    idx, evalid, dst, parts, nv = _parted_stream(rng, lens, q, tile, m, dev)
+    ns, ne = nv + 1, idx.shape[0]
+    wide = dtype == "int64"
+    table = (_packed(rng, m, dev) if wide
+             else _payload(rng, m, DTYPES[dtype], dev))
+    table[-1] = M.identity_value(monoid, table.dtype)
+    tvalid = torch.from_numpy(rng.random(m) < 0.6).to(dev)
+    tvalid[-1] = False
+    w = None
+    if fn is not None:
+        w = torch.from_numpy(
+            rng.integers(0, 9, ne).astype(np.float32)).to(dev)
+    if form == "unaligned":
+        idx, evalid, dst = map(_unaligned, (idx, evalid, dst))
+        w = _unaligned(w) if w is not None else None
+    kern = FusedStreamKernel(monoid, table.dtype)
+    before = dict(_build.FUSED_STREAM.regimes)
+    got = kern(table, tvalid, idx, evalid, dst, ns, w=w, apply_weight=fn,
+               parts=parts)
+    torch.cuda.synchronize()
+    assert _build.FUSED_STREAM.regimes["parts"] == before["parts"] + 1
+    assert _build.FUSED_STREAM.regimes["stream"] == before["stream"]
+    want = ref_fused_scatter_fold(M.make(monoid, table.dtype), table, tvalid,
+                                  idx, evalid, dst, ns, apply_weight=fn, w=w)
+    _assert_bit_exact(got, want)
+    assert bool(got[1][:q].any()) and not bool(got[1][q:2 * q].any())
+    # the stream regime on the same inputs
+    _assert_bit_exact(kern(table, tvalid, idx, evalid, dst, ns, w=w,
+                           apply_weight=fn), want)
+    assert _build.FUSED_STREAM.regimes["stream"] == before["stream"] + 1
+
+
+def test_fused_stream_parts_refuses_what_it_cannot_take(dev):
+    """parts with the tile form, a tile that does not divide the stream,
+    more partitions than segments and offsets off the card raise before
+    any launch."""
+    rng = np.random.default_rng(74)
+    idx, evalid, dst, parts, nv = _parted_stream(rng, [300, 200], 64, 32,
+                                                 500, dev)
+    table = _payload(rng, 500, torch.float32, dev)
+    tvalid = torch.ones(500, dtype=torch.bool, device=dev)
+    before = _build.FUSED_STREAM.launches
+    for bad, match in ((parts._replace(tile=48), "tile"),
+                       (parts._replace(q=1000), "num_segments"),
+                       (parts._replace(part_off=parts.part_off.cpu()),
+                        "part_off")):
+        with pytest.raises((ValueError, TypeError), match=match):
+            fused_scatter_fold(table, tvalid, idx, evalid, dst, nv + 1,
+                               monoid="min", parts=bad)
+    with pytest.raises(ValueError, match="tile form"):
+        fused_scatter_fold(table, tvalid, None, evalid, None, nv + 1,
+                           monoid="min", parts=parts,
+                           tiles=EdgeTiles(idx, dst, idx, parts.part_off, 64,
+                                           32))
+    assert _build.FUSED_STREAM.launches == before
+
+
 @pytest.fixture
 def nccl_mesh(dev, tmp_path):
     """One NCCL rank on the card (world size 1, a file store)."""
@@ -1550,13 +1664,15 @@ def test_dist_engine_on_one_nccl_rank_matches_engine(dev, nccl_mesh):
     src = int(np.argmax(g.out_degrees()))
     want = rt.bfs(L, src)
     for mode in ("dc", "sc", "hybrid", "hybrid_pp"):
-        before = _build.FUSED_STREAM.launches
+        before = dict(_build.FUSED_STREAM.regimes)
         got = rt.bfs(L, src, engine=DistEngine(SL, bfs_program(), nccl_mesh,
                                                mode=mode))
         assert np.array_equal(got["parent"], want["parent"]), mode
         assert np.array_equal(got["level"], want["level"]), mode
+        # the engine's fused gather takes the partitioned regime only
+        assert _build.FUSED_STREAM.regimes["stream"] == before["stream"]
         if mode == "dc":
-            assert _build.FUSED_STREAM.launches > before
+            assert _build.FUSED_STREAM.regimes["parts"] > before["parts"]
     got = rt.sssp_with_parents(L, src, engine=DistEngine(
         SL, sssp_parents_program(), nccl_mesh, mode="dc"))
     want = rt.sssp_with_parents(L, src)

@@ -183,10 +183,14 @@ def test_fused_dc_cuda_refuses_cpu_tensors(layouts):
 @pytest.mark.parametrize("source", ["fused_dc.cu", "segment_combine.cu"])
 def test_python_mirrors_of_the_tile_kernels_constants(source):
     """``fused_step.max_chunk`` (shared by the segment_combine wrapper) is
-    each tile kernel's ``kMaxChunk<T>``: ``MAX_CHUNK`` for 4-byte
-    accumulators, ``WIDE_MAX_CHUNK`` for 8-byte ones."""
+    each tile kernel's ``kMaxChunk<T>``, in its source or a header of
+    ``csrc/`` it includes: ``MAX_CHUNK`` for 4-byte accumulators,
+    ``WIDE_MAX_CHUNK`` for 8-byte ones."""
+    text = (CSRC / source).read_text()
+    text += "".join((CSRC / h).read_text()
+                    for h in re.findall(r'#include "(\w+\.cuh)"', text))
     found = re.search(r"constexpr [a-z ]+kMaxChunk = sizeof\(T\) == 8 \? "
-                      r"(\d+) : (\d+);", (CSRC / source).read_text())
+                      r"(\d+) : (\d+);", text)
     assert found
     wide, narrow = int(found.group(1)), int(found.group(2))
     assert (narrow, wide) == (fused_step.MAX_CHUNK, fused_step.WIDE_MAX_CHUNK)

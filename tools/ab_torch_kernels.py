@@ -12,7 +12,8 @@ commit, unpacked with ``git archive``); its ``src/repro_torch/csrc/
 fused_dc.cu``, ``segment_combine.cu``, ``spmv_block.cu``, ``dc_gather.cu``
 and ``segment_fold.cu`` are built beside this tree's.  Each baseline kernel
 is called through the C interface its own source declares, which must be
-one this tool knows: this tree's; for ``fused_dc``, the edge-range form it
+one this tool knows: this tree's; for ``fused_stream``, the stream regime
+alone, before its partitioned regime; for ``fused_dc``, the edge-range form it
 had before it read the tile form (the global ``idx`` and ``dst`` and the
 partitions' edge offsets, built here once on the card from the layout); for
 ``dc_gather``, the slot form it had before its staged regime (no pieces),
@@ -57,6 +58,16 @@ Rows, each timed ``--rounds`` times in the order old, new, ..., new, old:
             through L2), this tree's (staged in half rows), this tree's
             without pieces (L2), and ``torch.index_select`` of x over the
             slots' sources.
+  flat      the layout-free ``fused_dc`` (``fused_stream``) on the
+            received bins of ``shard_layout(L, 1)`` (one rank), as the dist
+            engine calls it: f32 add (PageRank) and the 8-byte min with
+            ``add_weight_to_key`` (SSSP-with-parents), every slot live, and
+            u32 min (BFS) with half, a tenth and a hundredth of the slots
+            live: the baseline kernel
+            (the stream regime only, before the partitioned one, or this
+            tree's interface over the same ranges), this tree's
+            partitioned regime over the engine's ranges
+            (``part_ranges``), and this tree's stream regime.
   fold      ``segment_fold`` on ``chip_smoke.py``'s three streams: 332,010
             messages (its SC stream at scale 22) whose ids are the
             destinations of edges drawn at random, into n_pad + 1 and
@@ -110,8 +121,13 @@ FUSED_TILE_LANES = ("table", "table_valid", "table_len", "table_stride",
                     "num_segments", "lanes", "out_stride", "monoid", "dtype",
                     "edge_fn", "acc", "touched", "stream")
 
+# fused_stream's C entry before the partitioned regime (no part_off)
+STREAM_ONLY = ("table", "table_valid", "table_len", "idx", "edge_valid",
+               "dst", "w", "n", "num_segments", "monoid", "dtype", "edge_fn",
+               "acc", "touched", "device", "stream")
 
-ROWS = "spmv,combine,fused,lanes,gather,gather8,fold"
+
+ROWS = "spmv,combine,fused,lanes,gather,gather8,flat,fold"
 
 
 def c_params(source: Path, name: str) -> tuple:
@@ -131,9 +147,10 @@ def baseline_kernel(kern, base_csrc: Path, shares=None):
     bound with the argument types of the interface that source declares:
     ``"this"`` (this tree's), ``"edge_range"`` (``fused_dc`` before the tile
     form), ``"slots"`` (``dc_gather`` before its staged regime),
-    ``"four_byte"`` (``dc_gather`` staged, before 8-byte words) or
-    ``"tile_lanes"`` (``fused_dc_lanes`` before the edge copy).  Refuses any
-    other."""
+    ``"four_byte"`` (``dc_gather`` staged, before 8-byte words),
+    ``"tile_lanes"`` (``fused_dc_lanes`` before the edge copy) or
+    ``"stream_only"`` (``fused_stream`` before its partitioned regime).
+    Refuses any other."""
     from repro_torch.kernels import _build
     src = base_csrc / kern.source.name
     params = c_params(src, kern.name)
@@ -145,6 +162,11 @@ def baseline_kernel(kern, base_csrc: Path, shares=None):
         return _build.CudaKernel(kern.name, str(src), (
             P, P, I64, I64, P, P, P, P, P, P, I32, I32, I32, I32, I64, I32,
             I64, I32, I32, I32, P, P, P), shares=shares), "tile_lanes"
+    if kern.name == "fused_stream" and params == STREAM_ONLY:
+        P, I64, I32 = _build.P, _build.I64, _build.I32
+        return _build.CudaKernel(kern.name, str(src), (
+            P, P, I64, P, P, P, P, I64, I64, I32, I32, I32, P, P, I32, P),
+            shares=shares), "stream_only"
     if kern.name == "fused_dc" and params == FUSED_EDGE_RANGE:
         P, I64, I32 = _build.P, _build.I64, _build.I32
         return _build.CudaKernel(kern.name, str(src), (
@@ -219,6 +241,7 @@ def main() -> int:
                       ("combine", _build.SEGMENT_COMBINE),
                       ("fused", _build.FUSED_DC),
                       ("gather", _build.DC_GATHER),
+                      ("flat", _build.FUSED_STREAM),
                       ("fold", _build.SEGMENT_FOLD)):
         old[key], iface[key] = baseline_kernel(kern, base_csrc)
     old["lanes"], iface["lanes"] = baseline_kernel(
@@ -667,6 +690,78 @@ def main() -> int:
                                     else max(2, args.reps // 5))})
             del fns, x8, act8, out8, flat
         del sk8, png_src
+
+    # ---------------- flat ----------------
+    if "flat" in rows:
+        from repro_torch.graph.shard import shard_layout
+        from repro_torch.kernels.fused_step import (fused_stream_cuda,
+                                                    part_ranges)
+        t0 = time.perf_counter()
+        SL = shard_layout(L, 1)
+        report["shard_layout_s"] = time.perf_counter() - t0
+        slot, fvalid, dstl, fw = (torch.from_numpy(a[0]).to(dev) for a in (
+            SL.in_msg_slot, SL.in_valid, SL.in_dst_local, SL.in_w))
+        parts = part_ranges(dstl, fvalid, SL.q, SL.kpd)
+        fm, fns, fne = SL.D * SL.S + 1, SL.nv + 1, SL.ne_d
+        del SL
+        fw_int = payload(fne).abs()
+
+        def old_flat(table, live, monoid, fn, w):
+            acc = torch.empty(fns, dtype=table.dtype, device=dev)
+            touched = torch.empty(fns, dtype=torch.bool, device=dev)
+            ranges = ((parts.part_off.data_ptr(), parts.part_off.numel() - 1,
+                       parts.q, parts.tile) if iface["flat"] == "this"
+                      else ())
+            args = (table.data_ptr(), live.data_ptr(), fm, slot.data_ptr(),
+                    fvalid.data_ptr(), dstl.data_ptr(),
+                    w.data_ptr() if fn else None, fne, *ranges, fns,
+                    _build.MONOID_CODES[monoid],
+                    _build.dtype_code(table.dtype, monoid), _EDGE_FNS[fn],
+                    acc.data_ptr(), touched.data_ptr(), table.device.index,
+                    stream())
+            return args, (acc, touched)
+
+        # PageRank's and SSSP-with-parents' steps with every slot live, and
+        # BFS's (u32 min) with a share of the slots live
+        for name, monoid, fn, share in (
+                ("f32_add", "add", None, 1.0),
+                ("int64_min_add_weight_to_key", "min_with_payload",
+                 add_weight_to_key, 1.0),
+                *((f"u32_min live {p}", "min", None, p)
+                  for p in (0.5, 0.1, 0.01))):
+            table = (packed(fm) if fn is not None else
+                     payload(fm, torch.uint32 if monoid == "min"
+                             else torch.float32))
+            live = (torch.rand(fm, generator=gen, device=dev) < share
+                    if share < 1 else torch.ones(fm, dtype=torch.bool,
+                                                 device=dev))
+            w_chk = fw_int if fn else None
+            new_call = lambda t, w, p, lv=live, m=monoid, f=fn: \
+                fused_stream_cuda(t, lv, slot, fvalid, dstl, fns, m,
+                                  apply_weight=f, w=w if f else None, parts=p)
+            want = run_c(old["flat"], old_flat(table, live, monoid, fn,
+                                               w_chk))
+            check_equal(new_call(table, w_chk, parts), want,
+                        f"flat {name} parts")
+            check_equal(new_call(table, w_chk, None), want,
+                        f"flat {name} stream")
+            del want
+            fns_t = {"old": lambda a=old_flat(table, live, monoid, fn, fw):
+                     run_c(old["flat"], a),
+                     "new": lambda t=table, c=new_call: c(t, fw, parts),
+                     "new_stream_regime": lambda t=table, c=new_call:
+                     c(t, fw, None)}
+            width = table.element_size()
+            nbytes = fne * (4 + 4 + 1 + (4 if fn else 0)) \
+                + fm * (width + 1) + fns * (width + 1)
+            emit({"row": "flat", "case": name, "live_share": share,
+                  "shape": {"table": fm, "edges": fne, "num_segments": fns,
+                            "parts": parts.part_off.numel() - 1,
+                            "tile": parts.tile},
+                  "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                  "times": in_turns(fns_t, args.reps)})
+            del fns_t, table, live
+        del slot, fvalid, dstl, fw, fw_int, parts
 
     # ---------------- fold ----------------
     rng = np.random.default_rng(args.seed)
