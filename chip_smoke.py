@@ -78,6 +78,13 @@ Phases, in order; each prints lines that start with its name:
            An engine's set-up on each DC lowering, whole and split into
            its host check, the fused kernel's check on the card, its
            host-to-card copies and the rest.
+  baselines  the vertex-centric baselines (``repro_torch.baselines.vc``:
+           plain torch over the edge list, no partitions): ``bfs_push``,
+           ``bfs_pull`` and ``bfs_ec`` from the same vertex, ``sssp_push``
+           on the weighted graph, ``pagerank_spmv`` (10 iterations) and
+           ``cc_ec`` on the symmetrized graph, against the same host
+           oracles, each wall beside the same app's GPOP wall above; none
+           may launch a GPOP kernel.
   batched  ``bfs_multi`` and ``sssp_multi`` over 16 lanes (the highest-degree
            vertex and 15 sources spread over the vertex ids) on each DC
            lowering: every lane bit-exact with a sequential ``bfs`` /
@@ -159,14 +166,37 @@ Phases, in order; each prints lines that start with its name:
            the dist DC step by part (scatter, exchange, fold) beside the
            single-device fused DC step, and one SC step in its dense and
            ragged forms (equal results), with the wire bytes.
-  tuning   ``autotune`` over the card's four tile geometries on the same
-           graph, the sweep's times and winner, and ``build_layout`` with
-           unset tiles reading the winner back from the cache.
+  tuning   ``autotune`` over the card's four tile geometries on an RMAT
+           graph of --scale - 2 (a quarter of the edges: the sweep builds a
+           layout on the host a geometry), the sweep's times and winner,
+           and ``build_layout`` with unset tiles reading the winner back
+           from the cache.
+  lm       the LM serving path (plain torch, eager): qwen2-0.5b (24 layers,
+           d_model 896, vocab 151,936) and mamba2-780m (48 layers, d_inner
+           3072, d_state 128) at full width and depth, random weights from
+           --seed.  In f32 (TF32 off): 2 prompts of 64 tokens prefilled and
+           8 greedy decode steps, every step's logits within LM_F32_ATOL of
+           the full forward over the prompt and the generated tokens, and
+           the same greedy tokens.  Then a bf16 ``Server`` on a copy of the
+           weights: the launcher's workload (8 requests of 4-15 tokens, 4
+           slots, max_len 256, max_new 16), its logits finite, within
+           LM_BF16_ATOL of the bf16 full forward over each request's tokens
+           and no farther from the f32 forward's than LM_BF16_NOISE_RATIO
+           times the bf16 forward is; then, timed, 16 requests of 1024
+           prompt tokens and 128 decode steps into 8 slots (vLLM's
+           ``benchmark_serving.py`` random dataset at its default lengths),
+           its greedy tokens the bf16 full forward's up to bf16 ties:
+           prefill ms per request, decode ms per tick, tokens/s, peak
+           device memory, and one tick and one prefill under
+           torch.profiler.  Then every smoke config (the MoE, hybrid and
+           frontend families among them) on the card against the CPU on
+           the same weights, within LM_SMOKE_ATOL.
 
 Launch counts are set to 0 before each path (fused apps, composed apps,
 each batched, payload and local run, the serve stream, each resumed and
 symmetrized delta run and the post-swap round, the dist phase's runs,
-tuning) and read after it.  Then one JSON line with the kernels' numbers,
+tuning, the baselines and the lm phase, which must launch none) and read
+after it.  Then one JSON line with the kernels' numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device.  The full
@@ -175,6 +205,7 @@ also written to ``--report`` (default ``results/chip_smoke.json``).
 """
 import argparse
 import collections
+import copy
 import dataclasses
 import datetime
 import itertools
@@ -328,6 +359,327 @@ def scope_kernels(trace_path, names) -> dict:
     return out
 
 
+#: the LM phase's full-width configurations (one card each in f32)
+LM_ARCHS = ("qwen2-0.5b", "mamba2-780m")
+#: f32 prefill + decode against the full forward, on the card with TF32
+#: off: the same products summed in other orders over 24-48 layers
+LM_F32_ATOL = 1e-3
+#: a smoke config's forward on the card against the CPU (TF32 off)
+LM_SMOKE_ATOL = 1e-4
+#: the bf16 Server's logits against the same model's bf16 full forward at
+#: full width, a model each: products of other shapes, rounded to bf16 at
+#: every layer.  Measured on an H100 (the launcher round): 0.044 for
+#: qwen2-0.5b and 1.30 for mamba2-780m, whose random weights amplify
+#: rounding: its bf16 forward is 1.98 from its f32 forward, on logits up
+#: to 4.2 (qwen2-0.5b's: 0.065, up to 3.3).  Each limit is about twice its
+#: reading.
+LM_BF16_ATOL = {"qwen2-0.5b": 0.1, "mamba2-780m": 2.6}
+#: the bf16 Server's logits may stray from the f32 forward's at most this
+#: many times as far as the bf16 full forward does (measured 1.04 and 0.91)
+LM_BF16_NOISE_RATIO = 1.5
+#: the launcher's LM workload (``launch/serve.py``'s defaults): the bf16
+#: Server's smoke check
+LAUNCHER_ROUND = {"requests": 8, "slots": 4, "max_len": 256, "max_new": 16}
+#: the timed round, at serving size: every request 1024 prompt tokens and
+#: 128 decode steps; 16 requests into 8 slots
+SERVING_ROUND = {"requests": 16, "slots": 8, "prompt": 1024, "max_new": 128}
+SERVING_SOURCE = ("vLLM benchmarks/benchmark_serving.py --dataset-name "
+                  "random at its defaults (--random-input-len 1024, "
+                  "--random-output-len 128); 16 of its 1000 prompts")
+
+
+def device_profile(fn, dev) -> dict:
+    """One call of ``fn`` (after one warm-up call) under torch.profiler:
+    its host wall (profiler overhead included), the CUDA kernels its trace
+    holds, their summed device time, and the aten ops it issued."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    return {"wall_ms": wall * 1e3, "kernels": len(kernels),
+            "device_busy_ms": busy,
+            "aten_ops": sum(1 for e in events if e.get("cat") == "cpu_op"
+                            and e.get("name", "").startswith("aten::"))}
+
+
+def bf16_round(model, cfg, dev, prompts, *, slots, max_len, max_new,
+               keep_logits=False) -> dict:
+    """``prompts`` through a bf16 ``Server`` of ``slots`` slots, each for
+    ``max_new`` decode steps: the finished requests by id, the walls of its
+    prefills and decode ticks (the server's ``on_wall``), the run's wall
+    and the peak device memory from the server's construction on."""
+    import torch
+    from repro_torch.serve import Request, Server
+    walls = {"prefill": [], "decode": []}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = Server(model, n_slots=slots, max_len=max_len, dtype=torch.bfloat16,
+                 on_wall=lambda kind, s: walls[kind].append(s),
+                 keep_logits=keep_logits)
+    for r, prompt in enumerate(prompts):
+        srv.submit(Request(rid=r, prompt=prompt, max_new=max_new))
+    t = time.perf_counter()
+    done = sorted(srv.run(), key=lambda d: d.rid)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    check([d.rid for d in done] == list(range(len(prompts)))
+          and all(len(d.out) == max_new + 1 for d in done),
+          f"{cfg.name}: the server did not return {max_new + 1} tokens a "
+          "request")
+    return {"server": srv, "done": done, "walls": walls, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def hold_to_full_forward(model, ref32, cfg, dev, done, atol) -> dict:
+    """Each finished request of a bf16 server on ``model`` against
+    ``model``'s own full forward (bf16) over its prompt and its tokens but
+    the last.  The server's token at each position is the bf16 forward's
+    greedy token, or one whose logit there lies within 2 x ``atol`` of the
+    largest (a tie at bf16 rounding: two sets of logits within ``atol`` of
+    each other allow no more).  Where
+    the server kept its logits, they must be finite, within ``atol`` of the
+    bf16 forward's, and no farther from ``ref32``'s (the same weights in
+    f32) than LM_BF16_NOISE_RATIO times the bf16 forward's own distance
+    from them (``noise``)."""
+    import torch
+    rec = {"positions": 0, "tokens_differ": 0, "max_gap": 0.0,
+           "max_abs_err": None, "noise": None, "max_abs_err_f32": None,
+           "max_abs_logit": 0.0, "atol": atol,
+           "noise_ratio": LM_BF16_NOISE_RATIO}
+
+    def logits(m, seq, P):
+        with torch.no_grad():
+            x = m.backbone(m.embed_tokens(seq),
+                           torch.arange(seq.shape[1], device=dev))
+            return m.lm_logits(x[:, P - 1:])[0]          # [max_new + 1, V]
+
+    def most(key, v):
+        rec[key] = max(rec[key] or 0.0, float(v))
+
+    for d in done:
+        P = len(d.prompt)
+        seq = torch.as_tensor(np.concatenate([d.prompt, d.out[:-1]]),
+                              dtype=torch.int64, device=dev)[None]
+        full = logits(model, seq, P)
+        check(bool(torch.isfinite(full).all()), f"{cfg.name}: the bf16 full "
+              "forward's logits are not finite")
+        out = torch.as_tensor(d.out, device=dev)
+        gap = full.amax(-1) - full.gather(1, out[:, None])[:, 0]
+        rec["positions"] += len(d.out)
+        rec["tokens_differ"] += int((full.argmax(-1) != out).sum())
+        most("max_gap", gap.max())
+        most("max_abs_logit", full.abs().max())
+        if d.logits is not None:
+            got, full32 = torch.stack(d.logits), logits(ref32, seq, P)
+            check(bool(torch.isfinite(got).all()), f"{cfg.name}: the "
+                  "server's logits are not finite")
+            most("noise", (full - full32).abs().max())
+            most("max_abs_err", (got - full).abs().max())
+            most("max_abs_err_f32", (got - full32).abs().max())
+    check(rec["max_gap"] <= 2 * atol, f"{cfg.name}: a server token's logit "
+          f"is {rec['max_gap']} below the bf16 full forward's largest "
+          f"(> 2 x {atol})")
+    if rec["max_abs_err"] is not None:
+        check(rec["max_abs_err"] <= atol, f"{cfg.name}: the server's logits "
+              f"are {rec['max_abs_err']} from the bf16 full forward's "
+              f"(> {atol})")
+        check(rec["max_abs_err_f32"] <= LM_BF16_NOISE_RATIO * rec["noise"],
+              f"{cfg.name}: the server's logits are {rec['max_abs_err_f32']}"
+              f" from the f32 forward's, more than {LM_BF16_NOISE_RATIO} x "
+              f"the bf16 forward's {rec['noise']}")
+    return rec
+
+
+def serve_lm(model, ref32, cfg, dev, seed, base):
+    """The bf16 ``Server`` on ``model`` (cast in place), twice, held to the
+    full forwards of ``model`` and ``ref32`` (the same weights in f32;
+    :func:`hold_to_full_forward`).  First the launcher's workload
+    (LAUNCHER_ROUND: prompts of 4-15 tokens drawn from ``default_rng(seed)``
+    as ``launch/serve.py`` draws them), its logits kept: the smoke check,
+    and the warm-up (its times are a first call's).  Then SERVING_ROUND, timed, its tokens checked: each
+    prefill and decode tick (the server's own walls, ending in the argmax's
+    copy to the host), the run's wall, tokens/s, and the peak device memory
+    from the server's construction on less ``base`` (what earlier phases
+    and ``ref32`` hold); then one decode tick of all slots and one prefill
+    of a SERVING_ROUND prompt under torch.profiler."""
+    import torch
+    from repro_torch.serve import engine as serve
+    rng = np.random.default_rng(seed)
+    lr = LAUNCHER_ROUND
+    smoke = bf16_round(
+        model, cfg, dev, [rng.integers(0, cfg.vocab, rng.integers(4, 16),
+                                       dtype=np.int32)
+                          for _ in range(lr["requests"])],
+        slots=lr["slots"], max_len=lr["max_len"], max_new=lr["max_new"],
+        keep_logits=True)
+    rec = {"launcher_round": dict(
+        lr, **round_times(smoke),
+        check=hold_to_full_forward(model, ref32, cfg, dev, smoke["done"],
+                                   LM_BF16_ATOL[cfg.name]),
+        out_first_request=smoke["done"][0].out)}
+    del smoke
+
+    sr = SERVING_ROUND
+    max_len = sr["prompt"] + sr["max_new"]
+    prompts = rng.integers(0, cfg.vocab, (sr["requests"], sr["prompt"]),
+                           dtype=np.int32)
+    run = bf16_round(model, cfg, dev, list(prompts), slots=sr["slots"],
+                     max_len=max_len, max_new=sr["max_new"])
+    check_rec = hold_to_full_forward(model, ref32, cfg, dev, run["done"],
+                                     LM_BF16_ATOL[cfg.name])
+    # where a tick's time goes: one more decode tick of every slot (past
+    # the ring's end: the times, not the tokens, are read), and a one-row
+    # prefill of a SERVING_ROUND prompt, each under torch.profiler
+    srv, bf16 = run["server"], torch.bfloat16
+    toks = torch.as_tensor(srv._next_tok, device=dev)
+    prompt = torch.as_tensor(prompts[:1], dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        profiles = {
+            "decode_tick": device_profile(lambda: serve.decode_step(
+                srv.model, toks, srv.cache), dev),
+            f"prefill_{sr['prompt']}": device_profile(lambda: serve.prefill(
+                srv.model, {"tokens": prompt},
+                serve.init_cache(cfg, 1, max_len, bf16, dev)), dev)}
+    rec["serving_round"] = dict(
+        sr, source=SERVING_SOURCE, **round_times(run),
+        peak_bytes=run["peak_bytes"] - base, check=check_rec,
+        profiles=profiles)
+    return rec
+
+
+def round_times(run) -> dict:
+    """A :func:`bf16_round`'s wall, tokens/s and its walls' medians."""
+    walls = run["walls"]
+    tokens = sum(len(d.out) for d in run["done"])
+    return {"wall_s": run["wall_s"], "tokens": tokens,
+            "tokens_per_s": tokens / run["wall_s"],
+            "prefill_ms_median": float(np.median(walls["prefill"])) * 1e3,
+            "prefill_ms_max": float(np.max(walls["prefill"])) * 1e3,
+            "decode_ticks": len(walls["decode"]),
+            "decode_ms_median": float(np.median(walls["decode"])) * 1e3,
+            "decode_ms_mean": float(np.mean(walls["decode"])) * 1e3}
+
+
+def lm_phase(dev, seed) -> dict:
+    """The LM serving path: each of LM_ARCHS at full width in f32 (2
+    prompts of 64 tokens prefilled, 8 greedy decode steps, every step's
+    logits against the full forward of the prompt and the generated tokens,
+    and the same greedy tokens), then the bf16 ``Server`` on the same
+    weights (:func:`serve_lm`); then every smoke config's forward (and
+    prefill + decode where it decodes) on the card against the CPU on the
+    same weights."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.serve import decode_step, init_cache, prefill
+    f32 = torch.float32
+    rec = {}
+    for arch in LM_ARCHS:
+        cfg = configs.get_config(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        t = time.perf_counter()
+        model = LM(cfg, device=dev, generator=gen)
+        torch.cuda.synchronize(dev)
+        r = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+             "vocab": cfg.vocab,
+             "params": sum(p.numel() for p in model.parameters()),
+             "config_param_count": cfg.param_count(),
+             "init_s": time.perf_counter() - t}
+        rng = np.random.default_rng(seed)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+        with torch.no_grad():
+            t = time.perf_counter()
+            cache = init_cache(cfg, 2, 128, dtype=f32, device=dev)
+            lg, cache = prefill(model, {"tokens": prompt}, cache)
+            steps, toks = [lg], [lg.argmax(-1)]
+            for _ in range(8):
+                lg, cache = decode_step(model, toks[-1], cache)
+                steps.append(lg)
+                toks.append(lg.argmax(-1))
+            torch.cuda.synchronize(dev)
+            r["f32_prefill_decode_s"] = time.perf_counter() - t
+            seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
+            full = model(seq)[:, 63:]
+            got = torch.stack(steps, 1)
+            r.update(f32_max_abs_err=float((got - full).abs().max()),
+                     f32_max_abs_logit=float(full.abs().max()),
+                     f32_atol=LM_F32_ATOL,
+                     greedy_equal=bool(torch.equal(full.argmax(-1),
+                                                   torch.stack(toks, 1))),
+                     f32_peak_bytes=torch.cuda.max_memory_allocated(dev)
+                     - base)
+        check(bool(torch.isfinite(got).all()), f"{arch}: f32 logits not "
+              "finite")
+        check(r["f32_max_abs_err"] <= LM_F32_ATOL,
+              f"{arch}: prefill + decode is {r['f32_max_abs_err']} from the "
+              f"full forward (> {LM_F32_ATOL})")
+        check(r["greedy_equal"], f"{arch}: the greedy tokens differ from the "
+              "full forward's")
+        del cache, full, got, steps, seq
+        # the server casts a copy; the f32 model stays as its yardstick
+        # and, with earlier phases, is left out of the server's peak
+        base = torch.cuda.memory_allocated(dev)
+        r["server_bf16"] = serve_lm(copy.deepcopy(model), model, cfg, dev,
+                                    seed, base)
+        rec[arch] = r
+        say("lm", arch=arch, **r)
+        del model
+        torch.cuda.empty_cache()
+
+    smoke = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        cpu = LM(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(seed))
+        card = LM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(seed)
+        if cfg.frontend is not None:
+            inputs = {"embeds": torch.from_numpy(rng.normal(
+                size=(2, 12, cfg.d_model)).astype(np.float32))}
+        else:
+            inputs = {"tokens": torch.from_numpy(
+                rng.integers(0, cfg.vocab, (2, 12)))}
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 3)))
+        outs = []
+        with torch.no_grad():
+            for model, d in ((cpu, torch.device("cpu")), (card, dev)):
+                on = {k: v.to(d) for k, v in inputs.items()}
+                seq = [model(on.get("tokens"), embeds=on.get("embeds"))]
+                if cfg.decoder:
+                    cache = init_cache(cfg, 2, 32, dtype=f32, device=d)
+                    lg, cache = prefill(model, on, cache)
+                    seq.append(lg)
+                    for i in range(3):
+                        lg, cache = decode_step(model, nxt[:, i].to(d), cache)
+                        seq.append(lg)
+                outs.append([x.cpu() for x in seq])
+        err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+        smoke[arch] = {"family": cfg.family, "max_abs_err": err,
+                       "decode_steps": 3 if cfg.decoder else 0}
+        check(err <= LM_SMOKE_ATOL, f"{arch} smoke: the card is {err} from "
+              f"the CPU (> {LM_SMOKE_ATOL})")
+        say("lm", smoke=arch, **smoke[arch])
+    rec["smoke_card_vs_cpu"] = smoke
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -373,6 +725,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     report = {"args": vars(args)}
     dtypes = {"float32": torch.float32, "int32": torch.int32,
               "uint32": torch.uint32}
@@ -512,6 +865,15 @@ def main() -> int:
     fused_plain_ms = median_ms(lambda: ref_fused_scatter_fold(
         M.add(torch.float32), tables["float32"], all_valid, idx, edge_valid,
         edge_dst, ns), 3)
+    # the yardstick, as the [flat] rows': index_add_ of the values the
+    # kernel folds, gathered beforehand (untimed)
+    lib_vals = torch.where(edge_valid.to(torch.bool),
+                           tables["float32"][idx.to(torch.int64)], 0.0)
+    lib_dst = edge_dst.to(torch.int64)
+    lib_acc = torch.zeros(ns, device=dev)
+    fused_library_ms = median_ms(
+        lambda: lib_acc.index_add_(0, lib_dst, lib_vals), 20)
+    del lib_vals, lib_dst, lib_acc
     nt = L.num_edge_tiles
     fused_bytes = ns * (4 + 1) + ne * (4 + 4 + 1) + nt * 4 + (L.k + 1) * 8 \
         + ns * (4 + 1)
@@ -521,7 +883,7 @@ def main() -> int:
         "case": "add float32, all sources live", **fused_t,
         "plain_ms": fused_plain_ms, "bytes": fused_bytes,
         "bound_ms": bound_ms(fused_bytes), "max_abs_err": fused_err,
-        "library_ms": None, "controls": fused_controls}
+        "library_ms": fused_library_ms, "controls": fused_controls}
     say("kernels", name="fused_dc", **report["fused_dc"])
     del fused_paths, tables, w_int, idx
 
@@ -989,6 +1351,24 @@ def main() -> int:
     def interleave_bytes(size):
         return lanes * ns * (size + 1) + ns * lanes * size + ns * 4
 
+    def interleave_library(table):
+        """The interleave's yardstick: index_select of the lane table's
+        transpose by the row order (entry v at row rank[v]; no masks)."""
+        order = torch.empty(ns, dtype=torch.int64, device=dev)
+        order[lane_le.rank.long()] = torch.arange(ns, device=dev)
+        return median_ms(lambda: torch.index_select(table.t(), 0, order), 10)
+
+    def lane_fold_library(table, valid):
+        """The lane fold's yardstick, as the [flat] rows': index_add_ of
+        every lane's values gathered beforehand (untimed) into [B * ns]."""
+        b = table.shape[0]
+        vals = torch.where(edge_valid.to(torch.bool) & valid[:, idx.long()],
+                           table[:, idx.long()], 0.0).reshape(-1)
+        ids = (torch.arange(b, device=dev)[:, None] * ns
+               + edge_dst.to(torch.int64)).reshape(-1)
+        acc = torch.zeros(b * ns, dtype=table.dtype, device=dev)
+        return median_ms(lambda: acc.index_add_(0, ids, vals), 10)
+
     interleave, lane_fold, il_out = lane_parts(ltab, lvalid)
     interleave()
     lane_err["fused_dc_interleave"] = max_abs_err(
@@ -1000,7 +1380,7 @@ def main() -> int:
         **kernel_times(interleave, 10),
         "plain_ms": median_ms(lambda: ref_interleave_lanes(
             ltab, lvalid, lane_le.rank), 2),
-        "library_ms": None, "bytes": interleave_bytes(4),
+        "library_ms": interleave_library(ltab), "bytes": interleave_bytes(4),
         "bound_ms": bound_ms(interleave_bytes(4)),
         "max_abs_err": lane_err["fused_dc_interleave"]}
     say("kernels", name="fused_dc_interleave[lanes=16]",
@@ -1017,7 +1397,8 @@ def main() -> int:
             ns), 2),
         "bytes": fused_lane_bytes(False),
         "bound_ms": bound_ms(fused_lane_bytes(False)),
-        "max_abs_err": lane_err["fused_dc"], "library_ms": None,
+        "max_abs_err": lane_err["fused_dc"],
+        "library_ms": lane_fold_library(ltab, lvalid),
         "lane_edges": lane_edges_rec,
         "controls": {
             "fold_only": kernel_times(lane_fold, 10),
@@ -1268,7 +1649,8 @@ def main() -> int:
                     f"fused_dc_interleave[int64,lanes={b}]"),
                 interleave_plain_ms=median_ms(
                     lambda: ref_interleave_lanes(table, live, lane_le.rank),
-                    2))
+                    2),
+                interleave_library_ms=interleave_library(table))
             del interleave, fold, il_out
         return call, plain, nbytes, lib, extra
 
@@ -1604,6 +1986,56 @@ def main() -> int:
     report["apps"] = apps
     report["engine_setup_s"] = setup_s
     del fused_res, composed_res
+
+    # ---------------- baselines ----------------
+    # the vertex-centric baselines (plain torch over the edge list, no
+    # partitions) on the same graphs and sources, against the same oracles,
+    # each wall beside the same app's GPOP wall from the fused run above
+    from repro_torch.baselines import vc
+    base = {}
+
+    def baseline(name, fn, gpop_app, check_fn):
+        out, wall = timed(fn)
+        base[name] = {"wall_s": wall, "gpop_app": gpop_app,
+                      "gpop_wall_s": apps[gpop_app]["wall_s"],
+                      **check_fn(out)}
+        say("baselines", name=name, **base[name])
+
+    def levels_ok(what):
+        def run(lv):
+            check(np.array_equal(lv, want_level),
+                  f"{what} levels differ from scipy")
+            return {"levels_equal": True}
+        return run
+
+    def dist_ok(dist):
+        check(np.array_equal(np.isinf(dist), ~fin),
+              "sssp_push reaches other vertices than Dijkstra")
+        rel = float(np.max(np.abs(dist[fin] - want_dist[fin])
+                           / np.maximum(want_dist[fin], 1e-30)))
+        check(rel <= 1e-5, f"sssp_push differs from Dijkstra ({rel})")
+        return {"max_rel_err": rel}
+
+    def labels_ok(label):
+        check(np.array_equal(label.astype(np.int64), want_label),
+              "cc_ec labels are not the least vertex id of each component")
+        return {"components": int(ncc)}
+
+    def pr_ok(pr):
+        l1 = float(np.abs(pr.astype(np.float64) - want_pr).sum())
+        check(l1 <= 1e-5, f"pagerank_spmv L1 distance {l1} > 1e-5")
+        return {"l1": l1}
+
+    c0 = counts()
+    for name in ("bfs_push", "bfs_pull", "bfs_ec"):
+        baseline(name, lambda f=getattr(vc, name): f(g, src), "bfs",
+                 levels_ok(name))
+    baseline("sssp_push", lambda: vc.sssp_push(g, src), "sssp", dist_ok)
+    baseline("pagerank_spmv", lambda: vc.pagerank_spmv(g, iters=10),
+             "pagerank", pr_ok)
+    baseline("cc_ec", lambda: vc.cc_ec(gs), "cc", labels_ok)
+    check(counts() == c0, "a baseline launched a GPOP kernel")
+    report["baselines"] = base
 
     # ---------------- batched ----------------
     # bfs_multi and sssp_multi over 16 lanes (src, then 15 sources spread
@@ -2874,13 +3306,15 @@ def main() -> int:
     del serve_round1
 
     # ---------------- tuning ----------------
+    # on a graph of --scale - 2, a quarter of the edges: the sweep builds
+    # a layout on the host for each geometry, and the readback one more
+    tune_scale = args.scale - 2
+    gt = rmat(tune_scale, 16, seed=args.seed, weighted=True)
     tdir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
     t = time.perf_counter()
     _build.reset_launch_counts()
-    geom = tuning.autotune(
-        g, k=K_PARTS, device="cuda", force=True, cache_dir=tdir,
-        layouts={tuning.TileGeometry(EDGE_TILE, MSG_TILE, L.fold_tile,
-                                     L.fold_q): L})
+    geom = tuning.autotune(gt, k=K_PARTS, device="cuda", force=True,
+                           cache_dir=tdir)
     tuning_launches = counts()
     tune_s = time.perf_counter() - t
     rec = json.loads(next(Path(tdir).glob("*.json")).read_text())
@@ -2890,20 +3324,32 @@ def main() -> int:
           "kernel spmv_block was not launched by the tuning sweep")
     os.environ[tuning.ENV_DIR] = tdir
     t = time.perf_counter()
-    Lw = build_layout(g, k=K_PARTS)
+    Lw = build_layout(gt, k=K_PARTS)
     layout_s = time.perf_counter() - t
     del os.environ[tuning.ENV_DIR]
     shutil.rmtree(tdir)
     check((Lw.edge_tile, Lw.msg_tile) == (geom.edge_tile, geom.msg_tile),
           f"build_layout took tiles ({Lw.edge_tile}, {Lw.msg_tile}), not the "
           f"tuned ({geom.edge_tile}, {geom.msg_tile})")
-    del Lw
-    report["tuning"] = {"winner": dataclasses.asdict(geom),
+    del Lw, gt
+    report["tuning"] = {"scale": tune_scale,
+                        "winner": dataclasses.asdict(geom),
                         "sweep": rec["sweep"], "autotune_s": tune_s,
                         "tuned_layout_s": layout_s,
                         "launches": tuning_launches}
     say("tuning", winner=report["tuning"]["winner"], autotune_s=tune_s,
         tuned_layout_s=layout_s, launches=tuning_launches)
+
+    # ---------------- lm ----------------
+    t = time.perf_counter()
+    c0 = counts()
+    report["lm"] = lm_phase(dev, args.seed)
+    report["lm"]["ppm_launches"] = {name: counts()[name] - c0[name]
+                                    for name in c0}
+    check(not any(report["lm"]["ppm_launches"].values()),
+          "the lm phase launched a GPOP kernel")
+    report["lm"]["phase_s"] = time.perf_counter() - t
+    say("lm", phase_s=report["lm"]["phase_s"])
 
     def row(name, source, replaces, launches_n, err, rec, bound):
         return {"name": name, "route": "cuda",
@@ -3010,7 +3456,9 @@ def main() -> int:
                  payload_launches["fused_dc_interleave"] + serve_wide_lanes,
                  wide["fused_dc[int64,lanes=16]"]["interleave_err"],
                  dict(wide["fused_dc[int64,lanes=16]"]["controls"]
-                      ["interleave_only"], library_ms=None,
+                      ["interleave_only"],
+                      library_ms=wide["fused_dc[int64,lanes=16]"]
+                      ["interleave_library_ms"],
                       plain_ms=wide["fused_dc[int64,lanes=16]"]
                       ["interleave_plain_ms"]),
                  wide["fused_dc[int64,lanes=16]"]["controls"]

@@ -1,7 +1,10 @@
 """PyTorch and CUDA port of the GPOP partition-centric graph engine.
 
-The JAX package ``repro`` is the reference; this package imports nothing of
-it and nothing of JAX.  The entry points run on a CUDA device unless the
+Beside the engine and its apps: the paper's vertex-centric baselines
+(:mod:`repro_torch.baselines`) and the LM serving stack
+(:mod:`repro_torch.models`, :mod:`repro_torch.configs`, the LM ``Server`` of
+:mod:`repro_torch.serve`).  The JAX package ``repro`` is the reference;
+this package imports nothing of it and nothing of JAX.  The entry points run on a CUDA device unless the
 caller passes ``device="cpu"``, which runs the plain PyTorch versions of the
 kernels.
 """

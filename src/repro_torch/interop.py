@@ -60,3 +60,75 @@ def state_to_torch(state: dict, device="cuda") -> dict:
     types, and uint64 becomes int64 with the same bits."""
     dev = resolve_device(device)
     return {key: to_torch(v, dev) for key, v in state.items()}
+
+
+def lm_params_from_reference(params, cfg) -> dict:
+    """The reference's ``init_lm`` tree (nested dicts of NumPy or JAX
+    arrays) as a state dict of :class:`repro_torch.models.LM` (f32 CPU
+    tensors; ``load_state_dict`` moves them to the model's device).
+
+    The layer axis of the stacked leaves is unstacked into
+    ``blocks.<i>``; ``[d_in, d_out]`` matrices become ``nn.Linear``
+    weights (transposed); the SSM's ``conv_x``, ``conv_B``, ``conv_C``
+    ([K, C] each) become one ``conv_weight`` [C, 1, K]; MoE expert stacks
+    keep the reference's layout."""
+    def t(a):
+        return torch.from_numpy(np.array(np.asarray(a), np.float32))
+
+    def lin(a):
+        return t(a).T.contiguous()
+
+    def mlp(p, i=None):
+        def leaf(a):
+            return a if i is None else a[i]
+        return {f"{n}.weight": lin(leaf(p[n])) for n in ("w1", "w3", "w2")}
+
+    def attn(p, i=None):
+        def leaf(a):
+            return a if i is None else a[i]
+        out = {f"{n}.weight": lin(leaf(p[n]))
+               for n in ("wq", "wk", "wv", "wo")}
+        out.update({n: t(leaf(p[n])) for n in ("bq", "bk", "bv") if n in p})
+        return out
+
+    def prefixed(prefix, d):
+        return {f"{prefix}.{k}": v for k, v in d.items()}
+
+    sd = {"embed.weight": t(params["embed"]),
+          "final_norm": t(params["final_norm"])}
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        b = f"blocks.{i}"
+        if "ssm" in layers:
+            s = layers["ssm"]
+            sd[f"{b}.ln"] = t(layers["ln"][i])
+            for n in ("wz", "wx", "wB", "wC", "wdt", "out"):
+                sd[f"{b}.ssm.{n}.weight"] = lin(s[n][i])
+            for n in ("dt_bias", "A_log", "D", "norm"):
+                sd[f"{b}.ssm.{n}"] = t(s[n][i])
+            conv = np.concatenate([np.asarray(s[n][i], np.float32)
+                                   for n in ("conv_x", "conv_B", "conv_C")],
+                                  axis=-1)
+            sd[f"{b}.ssm.conv_weight"] = t(conv.T[:, None, :])
+            continue
+        sd[f"{b}.ln1"] = t(layers["ln1"][i])
+        sd[f"{b}.ln2"] = t(layers["ln2"][i])
+        sd.update(prefixed(f"{b}.attn", attn(layers["attn"], i)))
+        if "moe" in layers:
+            m = layers["moe"]
+            sd[f"{b}.moe.router.weight"] = lin(m["router"][i])
+            for n in ("w1", "w3", "w2"):
+                sd[f"{b}.moe.{n}"] = t(m[n][i])
+            if "shared" in m:
+                sd.update(prefixed(f"{b}.moe.shared", mlp(m["shared"], i)))
+        else:
+            sd.update(prefixed(f"{b}.mlp", mlp(layers["mlp"], i)))
+    if "shared" in params:
+        sh = params["shared"]
+        sd["shared.ln1"] = t(sh["ln1"])
+        sd["shared.ln2"] = t(sh["ln2"])
+        sd.update(prefixed("shared.attn", attn(sh["attn"])))
+        sd.update(prefixed("shared.mlp", mlp(sh["mlp"])))
+    if "frontend_proj" in params:
+        sd["frontend_proj.weight"] = lin(params["frontend_proj"])
+    return sd

@@ -1,10 +1,11 @@
-"""Serving tier: graph-analytics query serving over one resident layout.
+"""Serving tier: LM continuous batching + graph-analytics query serving.
 
 :class:`ServeConfig` is the one configuration object of the graph query
 server (the reference's fields and defaults); :mod:`repro_torch.serve.cache`
 is the cache subsystem behind it (backend protocol, semantic entries, async
-warmer), a copy of the reference's.  The reference's LM server (``Server``,
-``prefill``, ``decode_step``) is not ported yet.
+warmer), a copy of the reference's.  The LM server (:class:`Server`,
+:class:`Request`, :func:`prefill`, :func:`decode_step`, :func:`init_cache`)
+serves a :class:`repro_torch.models.LM`.
 """
 import dataclasses
 from typing import Any, Optional
@@ -67,9 +68,12 @@ class ServeConfig:
 # from this partially-initialized package)
 from .cache import (CacheBackend, CacheWarmer, DiskCache, MemoryLRU,  # noqa: E402
                     SemanticCache, make_backend)
-from .engine import GraphQuery, GraphQueryServer  # noqa: E402
+from .engine import (  # noqa: E402
+    GraphQuery, GraphQueryServer, Request, Server, decode_step, init_cache,
+    prefill)
 
 __all__ = [
     "ServeConfig", "CacheBackend", "CacheWarmer", "DiskCache", "MemoryLRU",
     "SemanticCache", "make_backend", "GraphQuery", "GraphQueryServer",
+    "Request", "Server", "decode_step", "init_cache", "prefill",
 ]

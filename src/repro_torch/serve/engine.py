@@ -1,7 +1,19 @@
-"""Graph-analytics serving: PPM queries over one resident layout.
+"""Serving: LM continuous batching, and PPM queries over one resident layout.
 
-Counterpart of the graph half of :mod:`repro.serve.engine`
-(:class:`GraphQuery`, :class:`GraphQueryServer`), on the port's engines:
+Counterpart of :mod:`repro.serve.engine`.  The LM half (:func:`init_cache`,
+:func:`prefill`, :func:`decode_step`, :class:`Request`, :class:`Server`)
+runs a :class:`repro_torch.models.LM` eagerly on its device, with the
+reference's cache layouts (layer-stacked, as the reference scans layers):
+
+  attention archs: k/v [L, B, W, KV, dh]  (W = window for SWA else max_len),
+                   pos [B, W] absolute positions (-1 empty), len [B]
+  ssm archs:       h [L, B, H, N, P] f32, conv [L, B, K-1, di+2N], len [B]
+  hybrid:          ssm fields + shared-attn caches sk/sv
+                   [n_inv, B, W, KV, dh] and pos
+
+Prefill and decode update a cache in place.  The graph half
+(:class:`GraphQuery`, :class:`GraphQueryServer`) runs on the port's
+engines:
 
   * **Batched multi-source execution**: queued BFS / SSSP /
     SSSP-with-parents queries that differ only in their source vertex are
@@ -55,6 +67,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..apps.bfs import (bfs, bfs_multi, bfs_program, bfs_seeded_multi,
@@ -67,6 +80,8 @@ from ..apps.sssp_parents import (sssp_parents_multi, sssp_parents_program,
                                  sssp_with_parents)
 from ..core.engine import Engine, _next_pow2, resolve_device
 from ..dist.engine import DistEngine
+from ..models.config import ModelConfig
+from ..models.transformer import LM
 from . import ServeConfig
 from . import cache as cache_lib
 
@@ -87,6 +102,264 @@ def _plain(backend) -> bool:
                          f"kernels) or 'ref' (their plain versions), not "
                          f"{backend!r}")
     return PLAIN_BACKENDS[backend]
+
+
+# ----------------------------------------------------------------------
+# LM serving: caches, prefill, decode, and the slot server
+# ----------------------------------------------------------------------
+
+#: cache entries stacked by layer (or by shared-block group), which carry
+#: the batch on axis 1; the others carry it on axis 0
+LAYER_STACKED = ("k", "v", "h", "conv", "sk", "sv")
+
+
+def cache_width(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """An empty cache of ``B`` rows (the reference's layout, on ``device``):
+    ``k``/``v`` [L, B, W, KV, dh] with ``pos`` [B, W] (absolute positions,
+    -1 empty) for attention; ``h`` [L, B, H, N, P] f32 and ``conv`` [L, B,
+    K - 1, di + 2N] for SSMs, plus ``sk``/``sv`` [groups, B, W, KV, dh] and
+    ``pos`` for the hybrid's shared block; ``len`` [B]."""
+    dev = resolve_device(device)
+    L = cfg.n_layers
+    c = {"len": torch.zeros(B, dtype=torch.int32, device=dev)}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    W = cache_width(cfg, max_len)
+    if cfg.is_ssm:
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        c["h"] = zeros(L, B, H, N, P, dt=torch.float32)
+        c["conv"] = zeros(L, B, cfg.ssm_conv - 1, ch)
+        if cfg.family == "hybrid" and cfg.attn_every:
+            n_inv = -(-L // cfg.attn_every)
+            c["sk"] = zeros(n_inv, B, W, cfg.n_kv, cfg.d_head)
+            c["sv"] = zeros(n_inv, B, W, cfg.n_kv, cfg.d_head)
+            c["pos"] = torch.full((B, W), -1, dtype=torch.int32, device=dev)
+    else:
+        c["k"] = zeros(L, B, W, cfg.n_kv, cfg.d_head)
+        c["v"] = zeros(L, B, W, cfg.n_kv, cfg.d_head)
+        c["pos"] = torch.full((B, W), -1, dtype=torch.int32, device=dev)
+    return c
+
+
+def _ring_slots(S: int, W: int, device):
+    """The positions a prompt of S tokens leaves in a ring of W slots, and
+    their slots.  When S > W only the last W positions are written: they
+    are what the reference's scatter with repeated slots keeps (last wins;
+    torch's ``index_put_`` leaves repeated indices undefined)."""
+    pos = torch.arange(max(S - W, 0), S, device=device, dtype=torch.int32)
+    return pos, (pos % W).to(torch.int64)
+
+
+def prefill(model: LM, batch: dict, cache: dict):
+    """Fill ``cache`` (in place) from a full prompt, in the model's compute
+    dtype; returns (logits [B, V] f32 of the last position, cache).
+    ``batch``: ``{"tokens": [B, S]}`` or, for a frontend, ``{"embeds": [B,
+    S, d]}``; all B rows share length S (the server prefills one row at a
+    time)."""
+    cfg = model.cfg
+    if cfg.frontend is not None and "embeds" in batch:
+        h = model.embed_frontend(batch["embeds"])
+    else:
+        h = model.embed_tokens(batch["tokens"])
+    B, S = h.shape[:2]
+    positions = torch.arange(S, device=h.device)
+    x, states = model.backbone(h, positions, collect_cache=True)
+    logits = model.lm_logits_last(x)
+    if cfg.is_ssm:
+        cache["h"].copy_(torch.stack(states["ssm_h"]))
+        cache["conv"].copy_(torch.stack(states["ssm_conv"]))
+        k_c, v_c, kvs = cache.get("sk"), cache.get("sv"), states["shared_kv"]
+    else:
+        k_c, v_c = cache["k"], cache["v"]
+        kvs = list(zip(states["k"], states["v"]))
+    if k_c is not None:
+        pos, slots = _ring_slots(S, k_c.shape[2], h.device)
+        keep = slice(S - pos.numel(), S)
+        for i, kv in enumerate(kvs):
+            if kv is None:      # a hybrid group without its attention layer
+                k_c[i][:, slots] = 0
+                v_c[i][:, slots] = 0
+            else:
+                k_c[i][:, slots] = kv[0][:, keep].to(k_c.dtype)
+                v_c[i][:, slots] = kv[1][:, keep].to(v_c.dtype)
+        cache["pos"][:, slots] = pos
+    cache["len"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+    return logits[:, 0], cache
+
+
+def decode_step(model: LM, tokens, cache: dict):
+    """One token for every slot, in the model's compute dtype.  tokens: [B]
+    int.  Updates ``cache`` in place (``len`` is replaced) and returns
+    (logits [B, V] f32, cache)."""
+    cfg = model.cfg
+    B = tokens.shape[0]
+    x = model.embed_tokens(tokens[:, None])
+    q_pos = cache["len"]
+    step = None
+    if "pos" in cache:
+        pos = cache["pos"]
+        pos[torch.arange(B, device=x.device), q_pos % pos.shape[1]] = q_pos
+        step = model.decode_step_context(q_pos, pos)
+    if cfg.is_ssm:
+        ae = cfg.attn_every
+        x0 = x
+        for i, blk in enumerate(model.blocks):
+            x, h, conv = blk.decode(x, cache["h"][i], cache["conv"][i])
+            cache["h"][i] = h
+            cache["conv"][i] = conv
+            if step is not None and i % ae == ae - 1:
+                x = model.shared.decode(x, x0, cache["sk"][i // ae],
+                                        cache["sv"][i // ae], step)
+    else:
+        for i, blk in enumerate(model.blocks):
+            x = blk.decode(x, cache["k"][i], cache["v"][i], step)
+    cache["len"] = q_pos + 1
+    return model.lm_logits_last(x)[:, 0], cache
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    #: number of DECODE steps; ``out`` ends up ``max_new + 1`` tokens long
+    #: (the prefill-produced token plus one per decode step)
+    max_new: int = 32
+    out: Optional[list] = None
+    #: with ``Server(keep_logits=True)``: the [V] f32 logits (on the
+    #: device) each token of ``out`` was chosen from
+    logits: Optional[list] = None
+
+
+class Server:
+    """Continuous batching over B fixed slots (greedy decoding).
+
+    ``Server(model, n_slots=4, max_len=512, dtype=torch.bfloat16)`` serves
+    on the model's device and casts the model's weights to ``dtype`` once,
+    in place (:meth:`repro_torch.models.LM.to_compute`).  Each tick admits
+    queued requests into free slots (a one-row prefill spliced into the
+    batched cache), then decodes one token for every slot; a request
+    finishes after ``max_new`` decode steps.
+
+    Each prefill and each decode tick is timed on the host, both ending in
+    the argmax's copy to the host: ``obs`` records them (when enabled) as
+    ``serve.lm_prefill_wall_s`` and ``serve.lm_decode_wall_s``, and
+    ``on_wall(kind, seconds)`` (``kind`` "prefill" or "decode"), when
+    given, receives each one.  ``keep_logits`` keeps every token's logits
+    on its request (:attr:`Request.logits`), for checking.
+    """
+
+    def __init__(self, model: LM, n_slots: int = 4, max_len: int = 512,
+                 dtype=torch.bfloat16, *, on_wall=None,
+                 keep_logits: bool = False):
+        self.model = model.to_compute(dtype)
+        self.on_wall = on_wall
+        self.keep_logits = keep_logits
+        self.cfg = model.cfg
+        self.device = model.device
+        self.B, self.max_len = n_slots, max_len
+        self.dtype = dtype
+        self.cache = init_cache(self.cfg, n_slots, max_len, dtype,
+                                self.device)
+        self.free = list(range(n_slots))
+        self.active = {}                       # slot -> Request
+        self.queue = collections.deque()
+        self.done = []
+        self._next_tok = np.zeros(n_slots, np.int64)
+
+    def submit(self, req: Request):
+        req.out = []
+        req.logits = [] if self.keep_logits else None
+        self.queue.append(req)
+
+    def _timed(self, kind: str, t0: float):
+        dt = time.perf_counter() - t0
+        if obs.enabled():
+            obs.observe(f"serve.lm_{kind}_wall_s", dt)
+        if self.on_wall is not None:
+            self.on_wall(kind, dt)
+
+    @torch.no_grad()
+    def _prefill_into_slot(self, slot: int, req: Request):
+        # one-row prefill, then splice the row into the batched cache
+        row = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
+        toks = torch.as_tensor(np.asarray(req.prompt)[None, :],
+                               dtype=torch.int64, device=self.device)
+        logits, row = prefill(self.model, {"tokens": toks}, row)
+        tok = int(torch.argmax(logits[0]))
+        req.out.append(tok)
+        if self.keep_logits:
+            req.logits.append(logits[0])
+        self._next_tok[slot] = tok
+        for key, entry in self.cache.items():
+            if key in LAYER_STACKED:
+                entry[:, slot] = row[key][:, 0]
+            else:
+                entry[slot] = row[key][0]
+        self.active[slot] = req
+
+    @torch.no_grad()
+    def _decode(self, toks):
+        """One decode step of every slot: its logits, and the greedy tokens
+        on the host."""
+        logits, self.cache = decode_step(self.model, toks, self.cache)
+        return logits, torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def step(self):
+        """One scheduler tick: admit new requests, then decode one token."""
+        admitted = 0
+        while self.free and self.queue:
+            slot = self.free.pop()
+            t0 = time.perf_counter()
+            self._prefill_into_slot(slot, self.queue.popleft())
+            self._timed("prefill", t0)
+            admitted += 1
+        if obs.enabled():
+            obs.set_gauge("serve.lm_queue_depth", len(self.queue))
+            obs.set_gauge("serve.lm_active_slots", len(self.active))
+            if admitted:
+                obs.inc("serve.lm_admitted", admitted)
+        # max_new counts DECODE steps: the prefill-produced token is not
+        # one of them, so a max_new<=0 request finishes right after prefill
+        for slot, req in list(self.active.items()):
+            if len(req.out) - 1 >= req.max_new:
+                self.done.append(self.active.pop(slot))
+                self.free.append(slot)
+        if not self.active:
+            return False
+        toks = torch.as_tensor(self._next_tok, device=self.device)
+        t0 = time.perf_counter()
+        logits, nxt = self._decode(toks)
+        self._timed("decode", t0)
+        if obs.enabled():
+            # one token per *active* slot this tick
+            obs.inc("serve.lm_tokens", len(self.active))
+        finished = []
+        for slot, req in list(self.active.items()):
+            req.out.append(int(nxt[slot]))
+            if self.keep_logits:
+                req.logits.append(logits[slot])
+            self._next_tok[slot] = int(nxt[slot])
+            if len(req.out) - 1 >= req.max_new:
+                finished.append(slot)
+        for slot in finished:
+            self.done.append(self.active.pop(slot))
+            self.free.append(slot)
+        return True
+
+    def run(self, max_ticks: int = 10_000):
+        t = 0
+        while (self.queue or self.active) and t < max_ticks:
+            self.step()
+            t += 1
+        return self.done
 
 
 @dataclasses.dataclass

@@ -1697,3 +1697,103 @@ def test_dist_engine_on_one_nccl_rank_matches_engine(dev, nccl_mesh):
     assert torch.equal(out[0][1], out[1][1])
     for key in state:
         assert torch.equal(out[0][0][key], out[1][0][key]), key
+
+
+# ----------------------------------------------------------------------
+# the LM stack and the baselines: plain PyTorch on the card, held against
+# the same code on the CPU (f32 with TF32 off: 1e-4, the CPU tests'
+# tolerance against the reference)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _lm_pair(arch, dev):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+    cfg = get_smoke_config(arch)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-780m", "yi-34b",
+                                  "mistral-nemo-12b", "qwen2-0.5b", "yi-6b",
+                                  "llama4-scout-17b-a16e", "mixtral-8x7b",
+                                  "pixtral-12b", "hubert-xlarge"])
+def test_smoke_lm_on_the_card_matches_the_cpu(dev, no_tf32, arch):
+    """Each smoke config's forward, and prefill then decode where it
+    decodes, on the card against the CPU on the same weights."""
+    from repro_torch.serve import decode_step, init_cache, prefill
+    cfg, cpu, card = _lm_pair(arch, dev)
+    rng = np.random.default_rng(0)
+    S = 12
+    if cfg.frontend is not None:
+        e = torch.from_numpy(rng.normal(size=(2, S, cfg.d_model))
+                             .astype(np.float32))
+        inputs = {"embeds": e}
+    else:
+        inputs = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, S))).long()}
+    def on(d):
+        return {k: v.to(d) for k, v in inputs.items()}
+
+    with torch.no_grad():
+        want = cpu(on("cpu").get("tokens"), embeds=on("cpu").get("embeds"))
+        got = card(on(dev).get("tokens"), embeds=on(dev).get("embeds"))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4)
+        if not cfg.decoder:
+            return
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 3))).long()
+        outs = []
+        for model, d in ((cpu, "cpu"), (card, dev)):
+            cache = init_cache(cfg, 2, 32, dtype=torch.float32, device=d)
+            lg, cache = prefill(model, on(d), cache)
+            seq = [lg.cpu()]
+            for i in range(3):
+                lg, cache = decode_step(model, toks[:, i].to(d), cache)
+                seq.append(lg.cpu())
+            outs.append(torch.stack(seq))
+        np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+def test_lm_server_on_the_card_matches_the_cpu(dev, no_tf32):
+    from repro_torch.serve import Request, Server
+    cfg, cpu, card = _lm_pair("qwen2-0.5b", dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 16))
+               for _ in range(5)]
+    done = []
+    for model in (cpu, card):
+        srv = Server(model, n_slots=2, max_len=48, dtype=torch.float32)
+        for r, p in enumerate(prompts):
+            srv.submit(Request(rid=r, prompt=p, max_new=6))
+        done.append({d.rid: d.out for d in srv.run()})
+    assert done[1] == done[0]
+
+
+def test_baselines_on_the_card_match_the_cpu(dev):
+    from repro_torch.baselines import vc
+    g = rmat(12, 8, seed=3, weighted=True)
+    gs = symmetrize(g)
+    src = int(np.argmax(g.out_degrees()))
+    for fn in ("bfs_push", "bfs_pull", "bfs_ec"):
+        assert np.array_equal(getattr(vc, fn)(g, src),
+                              getattr(vc, fn)(g, src, device="cpu")), fn
+    assert np.array_equal(vc.sssp_push(g, src),
+                          vc.sssp_push(g, src, device="cpu"))
+    assert np.array_equal(vc.cc_ec(gs), vc.cc_ec(gs, device="cpu"))
+    np.testing.assert_allclose(vc.pagerank_spmv(g),
+                               vc.pagerank_spmv(g, device="cpu"), rtol=0,
+                               atol=1e-6)

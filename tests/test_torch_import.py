@@ -146,3 +146,45 @@ def test_payload_entries_raise_without_a_card(entry, monkeypatch):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def test_lm_stack_and_baselines_import_without_jax():
+    """The LM stack, its serving and launcher, and the baselines load
+    neither JAX nor the reference."""
+    code = ("import sys\n"
+            "import repro_torch.baselines.vc, repro_torch.configs\n"
+            "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+            "from repro_torch.serve import Request, Server\n"
+            "from repro_torch.interop import lm_params_from_reference\n"
+            "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'repro.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("entry", ["lm", "init_cache", "bfs_push",
+                                   "pagerank_spmv", "cc_ec", "launcher"])
+def test_lm_and_baseline_entries_raise_without_a_card(entry, monkeypatch):
+    from repro_torch.baselines import vc
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import LM
+    from repro_torch.serve import init_cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen2-0.5b")
+    g = rmat(6, 4, seed=0, weighted=True)
+    calls = {
+        "lm": lambda: LM(cfg),
+        "init_cache": lambda: init_cache(cfg, 2, 16),
+        "bfs_push": lambda: vc.bfs_push(g, 0),
+        "pagerank_spmv": lambda: vc.pagerank_spmv(g),
+        "cc_ec": lambda: vc.cc_ec(g),
+        "launcher": lambda: launcher.main(["--arch", "qwen2-0.5b",
+                                           "--smoke"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
