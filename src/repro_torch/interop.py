@@ -1,4 +1,5 @@
-"""Carry the reference's data across: layouts and vertex state.
+"""Carry the reference's data across: layouts, vertex state, LM weights
+and optimizer state.
 
 For a graph system the layout and the vertex state play the part of
 weights.  These helpers take the reference package's objects by duck typing
@@ -132,3 +133,16 @@ def lm_params_from_reference(params, cfg) -> dict:
     if "frontend_proj" in params:
         sd["frontend_proj.weight"] = lin(params["frontend_proj"])
     return sd
+
+
+def opt_state_from_reference(opt, cfg) -> dict:
+    """The reference's AdamW state (``init_opt_state`` / ``adamw_update``'s
+    tree) as :mod:`repro_torch.train.optimizer`'s: each of ``m``, ``v``,
+    ``master`` and ``ef`` present mapped like the params by
+    :func:`lm_params_from_reference` (it maps any tree of the params'
+    structure, f32 CPU tensors), and ``step`` an int32 0-d tensor."""
+    out = {k: lm_params_from_reference(opt[k], cfg)
+           for k in ("m", "v", "master", "ef") if k in opt}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32)
+    return out

@@ -13,8 +13,10 @@ Graph-analytics serving (--graph; everything routes through
   PYTHONPATH=src python -m repro_torch.launch.serve --graph --scale 10 \
       --queries 64 --app sssp --cache-dir /tmp/serve-cache
 
-The reference's ``--ckpt`` (its checkpoints come with training) and its
-mesh placement of the weights are not ported.
+``--ckpt DIR`` serves the weights of the latest checkpoint that
+``python -m repro_torch.launch.train --ckpt DIR`` wrote (its optimizer
+state is not read).  The reference's mesh placement of the weights is not
+ported.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..configs import get_config, get_smoke_config
 from ..core.engine import resolve_device
 from ..models import LM
 from ..serve import GraphQuery, GraphQueryServer, Request, ServeConfig, Server
+from ..train import checkpoint
 
 
 def serve_graph(args):
@@ -84,6 +87,7 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--ckpt", default=None)
     args = ap.parse_args(argv)
 
     if args.graph:
@@ -98,6 +102,9 @@ def main(argv=None):
     gen.manual_seed(0)
     model = LM(cfg, device=dev, generator=gen)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    if args.ckpt:
+        _, st = checkpoint.restore(args.ckpt, model)
+        print(f"[serve] loaded checkpoint step {st}", flush=True)
     srv = Server(model, n_slots=args.slots, max_len=args.max_len,
                  dtype=dtype)
     rng = np.random.default_rng(0)

@@ -1,8 +1,7 @@
-"""The LM stack's forward: configuration, layers, MoE, SSM and the model.
+"""The LM stack: configuration, layers, MoE, SSM, the model and its loss.
 
-Counterpart of :mod:`repro.models` in PyTorch (serving half: no loss or
-training step yet)."""
+Counterpart of :mod:`repro.models` in PyTorch."""
 from .config import ModelConfig
-from .transformer import LM
+from .transformer import LM, lm_head_chunked, lm_loss
 
-__all__ = ["ModelConfig", "LM"]
+__all__ = ["ModelConfig", "LM", "lm_head_chunked", "lm_loss"]

@@ -1,6 +1,6 @@
-"""Full LM assembly: embedding -> blocks -> tied head (forward only).
+"""Full LM assembly: embedding -> blocks -> tied head, and the LM loss.
 
-Counterpart of the forward half of :mod:`repro.models.transformer`.
+Counterpart of :mod:`repro.models.transformer`.
 Families:
   dense / moe          pre-norm GQA attention + SwiGLU / MoE
   ssm                  Mamba2 (SSD) blocks, attention-free
@@ -15,15 +15,22 @@ The reference stacks its layers and scans them; here they are a
 from a ``torch.Generator`` at the reference's scales (embed N(0, 0.02),
 projections N(0, 1/fan_in), norms 1, biases 0, ``A_log`` 0, ``D`` 1); a
 reference ``init_lm`` tree loads through
-:func:`repro_torch.interop.lm_params_from_reference`.  ``lm_loss`` and
-``lm_head_chunked`` (training) are not ported yet.
+:func:`repro_torch.interop.lm_params_from_reference`.
+
+Training: :func:`lm_loss` runs the backbone with remat (each block under
+``torch.utils.checkpoint``, as the reference checkpoints its scan body) and
+:func:`lm_head_chunked`, which never holds more than one chunk's
+``[B, chunk, V]`` logits.
 """
 from __future__ import annotations
 
+import functools
+import re
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.engine import resolve_device
 from .config import ModelConfig
@@ -31,6 +38,33 @@ from .layers import (MLP, Attention, DecodeStep, decode_mask,
                      init_linear, linear, rms_norm, rope_tables)
 from .moe import MoE
 from .ssm import Mamba2
+
+
+#: the products with no batch dimension: what the reference's "dots"
+#: remat policy (``dots_with_no_batch_dims_saveable``) keeps.  The
+#: attention and MoE einsums (``bmm``) have batch dimensions and are
+#: recomputed, as there.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpointed(fn, policy: str = "full"):
+    """``fn`` run under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, but, with ``policy ==
+    "dots"``, the outputs of its matrix products, which are kept."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+    return run
 
 
 class DenseBlock(nn.Module):
@@ -231,37 +265,50 @@ class LM(nn.Module):
     def embed_frontend(self, embeds):
         return linear(self.frontend_proj, embeds.to(self.dtype))
 
-    def backbone(self, h, positions, *, collect_cache: bool = False):
-        """h: [B, S, d] -> [B, S, d], in h's dtype.  ``collect_cache``
+    def backbone(self, h, positions, *, remat: bool = False,
+                 collect_cache: bool = False):
+        """h: [B, S, d] -> [B, S, d], in h's dtype.  ``remat`` runs each
+        layer (an SSM block with the shared block that follows it) under
+        :func:`checkpointed` with ``cfg.remat_policy``, as the reference
+        checkpoints its scan body.  ``collect_cache``
         returns the per-layer caches too: ``{"k": [...], "v": [...]}`` a
         layer ([B, S, KV, dh]), or ``{"ssm_h": [...], "ssm_conv": [...],
         "shared_kv": [...]}`` with one (k, v) an invocation group of the
         shared block, None for a group without its attention layer (whose
         cache rows the reference fills with zeros)."""
         cfg = self.cfg
-        x = h
         rot = self.rope_tables(positions)
-        if not cfg.is_ssm:
-            ks, vs = [], []
-            for blk in self.blocks:
-                x, (k, v) = blk(x, rot)
-                if collect_cache:
-                    ks.append(k)
-                    vs.append(v)
-            return (x, {"k": ks, "v": vs}) if collect_cache else x
         ae = cfg.attn_every
-        hs, convs = [], []
-        shared_kv = [None] * (-(-cfg.n_layers // ae) if self.shared else 0)
-        for i, blk in enumerate(self.blocks):
+
+        def layer(i, x, x0):
+            """Layer ``i``: (x, its cache entries)."""
+            blk = self.blocks[i]
+            if not cfg.is_ssm:
+                return blk(x, rot)
             x, st = blk(x, return_state=collect_cache)
-            if collect_cache:
-                hs.append(st[0])
-                convs.append(st[1])
+            kv = None
             if self.shared is not None and i % ae == ae - 1:
-                x, shared_kv[i // ae] = self.shared(x, h, rot)
-        if collect_cache:
-            return x, {"ssm_h": hs, "ssm_conv": convs, "shared_kv": shared_kv}
-        return x
+                x, kv = self.shared(x, x0, rot)
+            return x, (st, kv)
+
+        run = checkpointed(layer, cfg.remat_policy) if remat else layer
+        x = h
+        outs = []
+        for i in range(cfg.n_layers):
+            x, out = run(i, x, h)
+            if collect_cache:
+                outs.append(out)
+        if not collect_cache:
+            return x
+        if not cfg.is_ssm:
+            return x, {"k": [k for k, _ in outs], "v": [v for _, v in outs]}
+        shared_kv = [None] * (-(-cfg.n_layers // ae) if self.shared else 0)
+        for i, (_, kv) in enumerate(outs):
+            if kv is not None:
+                shared_kv[i // ae] = kv
+        return x, {"ssm_h": [st[0] for st, _ in outs],
+                   "ssm_conv": [st[1] for st, _ in outs],
+                   "shared_kv": shared_kv}
 
     def lm_logits(self, x):
         """Logits at every position, f32: norm, then the tied head in the
@@ -281,3 +328,76 @@ class LM(nn.Module):
         positions = torch.arange(h.shape[1], device=h.device)
         return self.lm_logits(self.backbone(h, positions))
 
+
+def reference_leaves(cfg: ModelConfig, names) -> list:
+    """The reference's parameter leaves as groups of the port's parameter
+    ``names``: a list of ``[(name, rows), ...]``, ``rows`` a slice of the
+    parameter's first axis.  The reference stacks each layer's weight
+    across the layers into one leaf, and keeps the SSM's ``conv_x``,
+    ``conv_B`` and ``conv_C`` apart where the port concatenates them into
+    one ``conv_weight``; so a statistic the reference takes over a leaf
+    (the int8 gradient compression's scale) spans a group here."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    conv = {"x": slice(0, di), "B": slice(di, di + N),
+            "C": slice(di + N, di + 2 * N)}
+    groups = {}
+    for name in names:
+        key = re.sub(r"^blocks\.\d+\.", "blocks.*.", name)
+        if name.endswith("ssm.conv_weight"):
+            for part, rows in conv.items():
+                groups.setdefault(f"{key}.{part}", []).append((name, rows))
+        else:
+            groups.setdefault(key, []).append((name, slice(None)))
+    return list(groups.values())
+
+
+# ----------------------------------------------------------------------
+# training loss
+# ----------------------------------------------------------------------
+
+def lm_head_chunked(model: LM, x, labels, *, chunk: int = 512):
+    """Per-token cross-entropy, summed and divided by ``B * S``, without
+    holding ``[B, S, V]`` logits: each chunk of the sequence is normed, put
+    through the tied head in the compute dtype, widened to f32 and reduced
+    to ``logsumexp - gold``, under :func:`checkpointed`, so the backward
+    recomputes one chunk's logits at a time instead of keeping them all.
+    x: [B, S, d]; labels: [B, S] (int64)."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0, "seq must divide the loss chunk"
+    eps = model.cfg.norm_eps
+
+    def step(xc, lc, norm, emb):
+        hc = rms_norm(xc, norm, eps)
+        logits = (hc @ emb.T).to(torch.float32)              # [B, c, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    run = checkpointed(step)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        tot = tot + run(x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                        model.final_norm, model.embed.weight)
+    return tot / (B * S)
+
+
+def lm_loss(model: LM, batch, *, remat: bool = True, chunk: int = 512):
+    """The mean next-token cross-entropy of ``batch``: ``{"tokens": [B, S]}``
+    or, for a frontend arch, ``{"embeds": [B, S, d]}``, and ``{"labels":
+    [B, S]}``; tensors or arrays, moved to the model's device.  Computed in
+    the model's compute dtype (:meth:`LM.to_compute`, the reference's
+    ``dtype=``), the backbone under remat unless ``remat=False``, the head
+    by :func:`lm_head_chunked` (``chunk``: the reference's default)."""
+    dev = model.device
+
+    def on(key, dtype=None):
+        return torch.as_tensor(batch[key]).to(device=dev, dtype=dtype)
+
+    if model.cfg.frontend is not None and "embeds" in batch:
+        h = model.embed_frontend(on("embeds"))
+    else:
+        h = model.embed_tokens(on("tokens", torch.int64))
+    positions = torch.arange(h.shape[1], device=dev)
+    x = model.backbone(h, positions, remat=remat)
+    return lm_head_chunked(model, x, on("labels", torch.int64), chunk=chunk)

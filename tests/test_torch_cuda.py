@@ -1797,3 +1797,38 @@ def test_baselines_on_the_card_match_the_cpu(dev):
     np.testing.assert_allclose(vc.pagerank_spmv(g),
                                vc.pagerank_spmv(g, device="cpu"), rtol=0,
                                atol=1e-6)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(dev, no_tf32):
+    """Two train steps of a smoke config as the launcher's ``--smoke`` runs
+    them (f32 compute, so no master; two microbatches) on the card against
+    the same on the CPU: losses, lr and grad norms within 1e-4 relative,
+    the weights and moments within 1e-4 (the forward's tolerance: f32 sums
+    in other orders).  No int8 compression here: a gradient 1e-7 apart
+    may round to the neighbouring int8 step, a whole step (max|g| / 127)
+    apart; ``chip_smoke.py`` holds that update on equal gradients."""
+    from repro_torch.train import (DataConfig, OptConfig, TokenPipeline,
+                                   init_opt_state, make_train_step)
+    cfg, cpu, card = _lm_pair("qwen2-0.5b", dev)
+    ocfg = OptConfig(lr=1e-3, warmup=1, compute_dtype=cfg.dtype)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                    global_batch=4, seed=3))
+    out = []
+    for model in (cpu, card):
+        state = init_opt_state(model, ocfg)
+        step = make_train_step(model, ocfg, microbatches=2)
+        metrics = [{k: float(v) for k, v in step(state, pipe.batch_at(i))
+                    .items()} for i in range(2)]
+        out.append((model, state, metrics))
+    (mc, sc, metc), (mg, sg, metg) = out
+    for a, b in zip(metc, metg):
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4)
+    assert sorted(sg) == ["m", "step", "v"] and int(sg["step"]) == 2
+    for key in ("m", "v"):
+        for n, t in sc[key].items():
+            np.testing.assert_allclose(sg[key][n].cpu().numpy(), t.numpy(),
+                                       rtol=0, atol=1e-4, err_msg=n)
+    for (n, a), b in zip(mc.state_dict().items(), mg.state_dict().values()):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
+                                   atol=1e-4, err_msg=n)
