@@ -191,6 +191,38 @@ Phases, in order; each prints lines that start with its name:
            torch.profiler.  Then every smoke config (the MoE, hybrid and
            frontend families among them) on the card against the CPU on
            the same weights, within LM_SMOKE_ATOL.
+  moe_ep   the LM's expert-parallel serving path on one NCCL rank (world
+           size 1, its own process group): mixtral-8x7b at full width
+           (d_model 4096, 8 experts top-2 of d_ff 14336, vocab 32000), its
+           depth cut from 32 layers to 4, under the reference's ``ppm_ep``
+           variant, placed by ``dist.sharding.shard_model`` on
+           ``launch.mesh.make_local_mesh`` with that mesh active, so every
+           MoE call bins its tokens and exchanges the bins through
+           ``all_to_all_single``.  Check 1: layer 0's MoE at the published
+           capacity 1.25 on a prefill's 1 x 1024 tokens and a tick's 8 x 1,
+           f32 and bf16, ``ppm_ep`` bit for bit the dense dispatch, both
+           timed beside the exchange alone.  Check 2, f32: a prefill of 2 x
+           64 tokens at capacity 1.25 against the forward over the prompt;
+           then at capacity E / k (no pair drops at any length, so the
+           longer full forward computes the same function) the prefill and
+           8 greedy decode steps within LM_F32_ATOL of the full forward,
+           the same greedy tokens, one exchange a layer a call.  Check 3,
+           at capacity E / k too (``reduced`` lists it: at 1.25 a longer
+           full forward drops other pairs than the server): SERVING_ROUND
+           through the bf16 ``Server``, twice.  First with every MoE layer's expert choices
+           recorded and the logits kept: each request's first token held
+           to the bf16 forward over its prompt alone (the prefill's own
+           shape, whose choices must be the prefill's), and each decode
+           token where the bf16 full forward chose the same experts in
+           every layer (at least MOE_HELD_SHARE of them) within
+           MOE_BF16_ATOL, by ``hold_to_full_forward``; the flips are
+           counted a layer.  Then timed, unrecorded, its tokens the first
+           round's: tokens/s, prefill and tick walls, the exchanges of
+           prefills and of ticks, peak memory, one tick profiled beside its
+           bytes bound.  Check 4: ``python -m repro_torch.launch.serve
+           --arch mixtral-8x7b --smoke``, a subprocess run beside the
+           graph's generation: the launcher's own world-size-1 group and
+           mesh, serving the smoke config under its defaults.
   train    the LM training path (plain torch, eager), qwen2-0.5b at full
            width and depth, random weights from --seed.  Check 1 (f32, TF32
            off, one batch of 2 x 512): ``lm_loss`` with remat and the
@@ -218,8 +250,8 @@ Phases, in order; each prints lines that start with its name:
 Launch counts are set to 0 before each path (fused apps, composed apps,
 each batched, payload and local run, the serve stream, each resumed and
 symmetrized delta run and the post-swap round, the dist phase's runs,
-tuning, the baselines and the lm and train phases, which must launch
-none) and read after it.  Then one JSON line with the kernels' numbers,
+tuning, the baselines and the lm, moe_ep and train phases, which must
+launch none) and read after it.  Then one JSON line with the kernels' numbers,
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that line, as does a machine where torch sees no CUDA device, or a script
@@ -413,6 +445,27 @@ SERVING_SOURCE = ("vLLM benchmarks/benchmark_serving.py --dataset-name "
                   "--random-output-len 128); 16 of its 1000 prompts")
 
 
+#: the moe_ep phase: mixtral-8x7b at full width (d_model 4096, 32/8 heads
+#: of 128, 8 experts top-2 of d_ff 14336, vocab 32000) with its depth cut
+#: from 32 layers to 4 (6.07B parameters, 24.3 GB in f32 on one card),
+#: under the reference's ppm_ep variant (launch/dryrun.py,
+#: VARIANTS["ppm_ep"]): experts on the model axis, ff replicated,
+#: moe_impl "ppm_ep"
+MOE_EP_ARCH, MOE_EP_LAYERS = "mixtral-8x7b", 4
+MOE_EP_VARIANT = {"sharding_overrides": (("experts", "model"), ("ff", None)),
+                  "moe_impl": "ppm_ep"}
+#: check 1's MoE layer inputs: a SERVING_ROUND prefill's one row of 1024
+#: tokens and a decode tick's 8 slots of one token
+MOE_EP_SHAPES = {"prefill": (1, 1024), "decode": (8, 1)}
+#: check 3: the bf16 Server's logits against the bf16 full forward's where
+#: every layer chose the same experts in both (products of other shapes,
+#: rounded to bf16 at every layer; LM_BF16_ATOL's rule)
+MOE_BF16_ATOL = 0.25
+#: the share of a round's tokens whose experts the forward must have
+#: chosen alike in every layer for the hold to mean something
+MOE_HELD_SHARE = 0.5
+
+
 #: the train phase: qwen2-0.5b at full width and depth, bf16 compute with
 #: an f32 master (what the train launcher's OptConfig gives the config)
 TRAIN_ARCH = "qwen2-0.5b"
@@ -445,6 +498,22 @@ def train_flops(cfg, n_params, seq, tokens) -> float:
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * tokens)
 
 
+def run_launcher(phase, name, module_args, expect) -> dict:
+    """``python -m <module_args>`` in a subprocess with
+    PYTHONPATH=<repo>/src and a time limit, which must exit 0 and print
+    ``expect``: its record."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *module_args],
+                       capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       timeout=LAUNCH_TIMEOUT_S, cwd=ROOT)
+    check(r.returncode == 0 and expect in r.stdout,
+          f"{phase}: {name} exited {r.returncode} without '{expect}': "
+          f"{r.stdout[-400:]} {r.stderr[-800:]}")
+    return {"rc": r.returncode, "s": time.perf_counter() - t0,
+            "stdout_tail": r.stdout[-600:], "stderr_tail": r.stderr[-600:]}
+
+
 def train_launchers(dev) -> dict:
     """Check 4 of the train phase: ``python -m repro_torch.launch.train``
     at TRAIN_SHAPE for 2 steps, again to 3 (it must resume at 2), then
@@ -453,21 +522,11 @@ def train_launchers(dev) -> dict:
     checkpoints (~7 GB each) are deleted after.  Their record."""
     sh = TRAIN_SHAPE
     t = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
     runs = {}
 
-    def launch(name, module, *args, expect):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", module, *args],
-                           capture_output=True, text=True, env=env,
-                           timeout=LAUNCH_TIMEOUT_S, cwd=ROOT)
-        runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t0,
-                      "stdout_tail": r.stdout[-600:],
-                      "stderr_tail": r.stderr[-600:]}
-        check(r.returncode == 0 and expect in r.stdout,
-              f"train: {name} exited {r.returncode} without '{expect}': "
-              f"{r.stdout[-400:]} {r.stderr[-800:]}")
+    def launch(name, *module_args, expect):
+        runs[name] = run_launcher("train", name, module_args, expect)
 
     train = ("repro_torch.launch.train", "--arch", TRAIN_ARCH, "--device",
              dev.type, "--seq", str(sh["seq"]), "--global-batch",
@@ -754,19 +813,25 @@ def device_profile(fn, dev, top: int = 0) -> dict:
 
 
 def bf16_round(model, cfg, dev, prompts, *, slots, max_len, max_new,
-               keep_logits=False) -> dict:
+               keep_logits=False, on_wall=None) -> dict:
     """``prompts`` through a bf16 ``Server`` of ``slots`` slots, each for
     ``max_new`` decode steps: the finished requests by id, the walls of its
-    prefills and decode ticks (the server's ``on_wall``), the run's wall
-    and the peak device memory from the server's construction on."""
+    prefills and decode ticks (the server's ``on_wall``; each is also
+    passed to ``on_wall(server, kind, seconds)`` when given), the run's
+    wall and the peak device memory from the server's construction on."""
     import torch
     from repro_torch.serve import Request, Server
     walls = {"prefill": [], "decode": []}
+
+    def wall(kind, s):
+        walls[kind].append(s)
+        if on_wall is not None:
+            on_wall(srv, kind, s)
+
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     srv = Server(model, n_slots=slots, max_len=max_len, dtype=torch.bfloat16,
-                 on_wall=lambda kind, s: walls[kind].append(s),
-                 keep_logits=keep_logits)
+                 on_wall=wall, keep_logits=keep_logits)
     for r, prompt in enumerate(prompts):
         srv.submit(Request(rid=r, prompt=prompt, max_new=max_new))
     t = time.perf_counter()
@@ -781,7 +846,33 @@ def bf16_round(model, cfg, dev, prompts, *, slots, max_len, max_new,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
-def hold_to_full_forward(model, ref32, cfg, dev, done, atol) -> dict:
+def moe_inputs(model):
+    """Forward hooks on ``model``'s MoE layers that keep each call's input
+    in call order (a reference: nothing runs on the device): the list, and
+    a function that removes the hooks."""
+    xs = []
+    hooks = [blk.moe.register_forward_hook(
+        lambda mod, args, out: xs.append(args[0])) for blk in model.blocks]
+    return xs, lambda: [h.remove() for h in hooks]
+
+
+def moe_routes(model, xs):
+    """The experts ``model``'s MoE layers chose for one model call, from
+    their inputs ``xs`` (:func:`moe_inputs`, one a layer): [L, B, S, k],
+    each (token, choice) pair's expert, or -1 where the capacity dropped
+    it."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    out = []
+    for blk, x in zip(model.blocks, xs, strict=True):
+        cap = moe_lib.capacity(blk.moe.cfg, x.shape[1])
+        slot, keep, _ = moe_lib.dispatch(blk.moe, x, cap)
+        out.append(torch.where(keep, slot // cap, -1))
+    return torch.stack(out)
+
+
+def hold_to_full_forward(model, ref32, cfg, dev, done, atol,
+                         routes=None) -> dict:
     """Each finished request of a bf16 server on ``model`` against
     ``model``'s own full forward (bf16) over its prompt and its tokens but
     the last.  The server's token at each position is the bf16 forward's
@@ -789,20 +880,44 @@ def hold_to_full_forward(model, ref32, cfg, dev, done, atol) -> dict:
     largest (a tie at bf16 rounding: two sets of logits within ``atol`` of
     each other allow no more).  Where
     the server kept its logits, they must be finite, within ``atol`` of the
-    bf16 forward's, and no farther from ``ref32``'s (the same weights in
-    f32) than LM_BF16_NOISE_RATIO times the bf16 forward's own distance
-    from them (``noise``)."""
+    bf16 forward's and, given ``ref32`` (the same weights in f32), no
+    farther from ``ref32``'s than LM_BF16_NOISE_RATIO times the bf16
+    forward's own distance from them (``noise``).
+
+    With ``routes`` (a MoE model's: by request id, [L, P + max_new, k], the
+    experts the server's layers chose at each position of the prompt and
+    the tokens but the last, :func:`moe_routes`), a token is held only
+    where the forward chose the same experts in every layer: bf16 rounding
+    in products of other shapes can flip a near-tied router choice, and a
+    token sent to another expert moves its logits by whole units, which no
+    logit tolerance bounds.  The first token (the prefill's) is held
+    against the forward over the prompt alone, the prefill's own shape and
+    capacity, whose choices must be the prefill's at every prompt
+    position.  The record counts the tokens held and, a layer, the tokens
+    whose choices flipped, with the largest gap and error among those."""
     import torch
-    rec = {"positions": 0, "tokens_differ": 0, "max_gap": 0.0,
+    rec = {"positions": 0, "held": 0, "tokens_differ": 0, "max_gap": 0.0,
            "max_abs_err": None, "noise": None, "max_abs_err_f32": None,
            "max_abs_logit": 0.0, "atol": atol,
            "noise_ratio": LM_BF16_NOISE_RATIO}
+    if routes is not None:
+        rec.update(route_flips_by_layer=[0] * cfg.n_layers,
+                   max_gap_flipped=0.0, max_abs_err_flipped=None)
 
     def logits(m, seq, P):
         with torch.no_grad():
             x = m.backbone(m.embed_tokens(seq),
                            torch.arange(seq.shape[1], device=dev))
             return m.lm_logits(x[:, P - 1:])[0]          # [max_new + 1, V]
+
+    def routed(seq, P):
+        xs, remove = moe_inputs(model)
+        try:
+            lg = logits(model, seq, P)
+        finally:
+            remove()
+        with torch.no_grad():
+            return lg, moe_routes(model, xs)[:, 0]          # [L, S, k]
 
     def most(key, v):
         rec[key] = max(rec[key] or 0.0, float(v))
@@ -811,22 +926,47 @@ def hold_to_full_forward(model, ref32, cfg, dev, done, atol) -> dict:
         P = len(d.prompt)
         seq = torch.as_tensor(np.concatenate([d.prompt, d.out[:-1]]),
                               dtype=torch.int64, device=dev)[None]
-        full = logits(model, seq, P)
+        held = torch.ones(len(d.out), dtype=torch.bool, device=dev)
+        if routes is None:
+            full = logits(model, seq, P)
+        else:
+            served = routes[d.rid]
+            full, chose = routed(seq, P)
+            first, chose_first = routed(seq[:, :P], P)
+            check(torch.equal(chose_first, served[:, :P]), f"{cfg.name}: "
+                  f"request {d.rid}'s prefill chose other experts than the "
+                  "forward over its prompt")
+            full[0] = first[0]
+            # token i's logits are position P - 1 + i's, a decode step's
+            # for i >= 1
+            flip = (chose[:, P:] != served[:, P:]).any(-1)  # [L, max_new]
+            for layer, n in enumerate(flip.sum(1).tolist()):
+                rec["route_flips_by_layer"][layer] += n
+            held[1:] = ~flip.any(0)
         check(bool(torch.isfinite(full).all()), f"{cfg.name}: the bf16 full "
               "forward's logits are not finite")
         out = torch.as_tensor(d.out, device=dev)
         gap = full.amax(-1) - full.gather(1, out[:, None])[:, 0]
         rec["positions"] += len(d.out)
+        rec["held"] += int(held.sum())
         rec["tokens_differ"] += int((full.argmax(-1) != out).sum())
-        most("max_gap", gap.max())
+        most("max_gap", gap.masked_fill(~held, 0).max())
         most("max_abs_logit", full.abs().max())
+        if routes is not None:
+            most("max_gap_flipped", gap.masked_fill(held, 0).max())
         if d.logits is not None:
-            got, full32 = torch.stack(d.logits), logits(ref32, seq, P)
+            got = torch.stack(d.logits)
             check(bool(torch.isfinite(got).all()), f"{cfg.name}: the "
                   "server's logits are not finite")
-            most("noise", (full - full32).abs().max())
-            most("max_abs_err", (got - full).abs().max())
-            most("max_abs_err_f32", (got - full32).abs().max())
+            err = (got - full).abs().amax(-1)
+            most("max_abs_err", err.masked_fill(~held, 0).max())
+            if routes is not None:
+                most("max_abs_err_flipped", err.masked_fill(held, 0).max())
+            if ref32 is not None:
+                full32 = logits(ref32, seq, P)
+                most("noise", (full - full32).abs().max())
+                most("max_abs_err_f32", (got - full32).abs().max())
+    say("hold", model=cfg.name, **rec)
     check(rec["max_gap"] <= 2 * atol, f"{cfg.name}: a server token's logit "
           f"is {rec['max_gap']} below the bf16 full forward's largest "
           f"(> 2 x {atol})")
@@ -834,6 +974,7 @@ def hold_to_full_forward(model, ref32, cfg, dev, done, atol) -> dict:
         check(rec["max_abs_err"] <= atol, f"{cfg.name}: the server's logits "
               f"are {rec['max_abs_err']} from the bf16 full forward's "
               f"(> {atol})")
+    if rec["noise"] is not None:
         check(rec["max_abs_err_f32"] <= LM_BF16_NOISE_RATIO * rec["noise"],
               f"{cfg.name}: the server's logits are {rec['max_abs_err_f32']}"
               f" from the f32 forward's, more than {LM_BF16_NOISE_RATIO} x "
@@ -1019,6 +1160,281 @@ def lm_phase(dev, seed) -> dict:
     return rec
 
 
+def moe_layer_check(moe, cfg, dev, seed, group) -> dict:
+    """Check 1 of the moe_ep phase: layer 0's MoE at the published capacity
+    factor on MOE_EP_SHAPES, f32 and bf16 (a bf16 copy of the layer):
+    ``ppm_ep`` (one exchange a call) bit for bit the dense dispatch; both
+    timed (CUDA events, median of 5), beside the exchange alone on bins of
+    the same shape, both directions, and the pairs the capacity kept."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    E, d = cfg.moe_experts, cfg.d_model
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = moe if dtype == torch.float32 else copy.deepcopy(moe).to(dtype)
+        for name, (B, S) in MOE_EP_SHAPES.items():
+            x = torch.randn(B, S, d, device=dev, generator=gen).to(dtype)
+            cap = moe_lib.capacity(cfg, S)
+            with torch.no_grad():
+                moe_lib.reset_counts()
+                got = moe_lib.moe_fwd(m, x)
+                exchanged = moe_lib.COUNTS["ppm_ep"]
+                want = moe_lib.moe_fwd_dense(m, x)
+                _, keep, _ = moe_lib.dispatch(m, x, cap)
+                bins = torch.zeros(1, B, E, cap, d, dtype=dtype, device=dev)
+                r = {"shape": [B, S, d], "capacity_rows": cap,
+                     "pairs": keep.numel(), "pairs_kept": int(keep.sum()),
+                     "exchanges": exchanged,
+                     "bit_equal": bool(torch.equal(got, want)),
+                     "max_abs_err": float((got.float() - want.float())
+                                          .abs().max()),
+                     "ppm_ep_ms": median_ms(lambda: moe_lib.moe_fwd(m, x), 5),
+                     "dense_ms": median_ms(
+                         lambda: moe_lib.moe_fwd_dense(m, x), 5),
+                     "exchange_ms": 2 * median_ms(
+                         lambda: moe_lib._exchange(bins, group), 5),
+                     "exchange_bytes": 2 * bins.numel() * bins.element_size()}
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            rec[tag] = r
+            check(exchanged == 1, f"moe_ep: {tag}: ppm_ep made "
+                  f"{exchanged} exchanges, not 1")
+            check(r["bit_equal"], f"moe_ep: {tag}: ppm_ep is "
+                  f"{r['max_abs_err']} from the dense dispatch at Dm = 1")
+            say("moe_ep", layer=tag, **r)
+        del m
+    return rec
+
+
+def moe_ep_phase(dev, seed, launcher) -> dict:
+    """The LM's expert-parallel serving path on one NCCL rank (world size
+    1, its own process group): MOE_EP_ARCH at full width and MOE_EP_LAYERS
+    layers under MOE_EP_VARIANT, placed by ``shard_model`` on
+    ``make_local_mesh`` with that mesh active, so every MoE call takes the
+    ``ppm_ep`` exchange (Dm = 1 divides every expert count and sequence).
+
+    Check 1 (:func:`moe_layer_check`): one layer, ppm_ep bit for bit the
+    dense dispatch.  Check 2, f32: at the published capacity 1.25, a
+    prefill of 2 x 64 tokens against the forward over the prompt (the
+    same capacity).  The rest runs on the same weights at capacity E / k,
+    where no pair drops at any length: a capacity that grows with S drops
+    other pairs in a longer full forward than in a prefill, and more
+    still where the generated tokens repeat one expert pair (run 67 at
+    1.25: the forward dropped most decode tokens that the server, binning
+    one token a row, kept), so only a dropless capacity makes the server
+    and a full forward one function.  (A tick's bins are one row an expert
+    at either capacity; only a prefill's grow, 320 to 1024 rows.)  Check
+    2 then: the f32 prefill and 8 greedy decode steps against the full
+    forward over the prompt and the generated tokens within LM_F32_ATOL,
+    the same greedy tokens.  Check 3: SERVING_ROUND through the bf16
+    ``Server`` (the weights cast in place), twice: first with every MoE
+    layer's expert choices recorded and the logits kept, held by
+    :func:`hold_to_full_forward` to MOE_BF16_ATOL wherever the forward
+    chose the same experts, which must be at least MOE_HELD_SHARE of the
+    tokens; then timed, without the recording, its tokens the first
+    round's.  The timed round's tokens/s,
+    prefill and tick walls, the exchanges of its prefills and of its ticks
+    (one a layer), peak memory, and one tick under torch.profiler beside
+    its bytes bound (every bf16 weight read once).
+    ``launcher`` is check 4's record: ``python -m repro_torch.launch.serve
+    --arch mixtral-8x7b --smoke``, run beside the graph's generation, which
+    starts its own world-size-1 group and mesh and serves the smoke config
+    under its defaults (``dense_dp``: the rules place no expert)."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import configs
+    from repro_torch.dist import BACKENDS, sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import decode_step, init_cache, prefill
+    from repro_torch.serve import engine as serve
+    f32 = torch.float32
+    full = configs.get_config(MOE_EP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_EP_LAYERS, **MOE_EP_VARIANT)
+    E, k, L = cfg.moe_experts, cfg.moe_top_k, cfg.n_layers
+    rec = {"arch": MOE_EP_ARCH,
+           "reduced": {"n_layers": [full.n_layers, L],
+                       "serving_round_moe_capacity": [cfg.moe_capacity,
+                                                      E / k]},
+           "d_model": cfg.d_model, "experts": E, "top_k": k,
+           "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab,
+           "variant": {"sharding_overrides": [list(o) for o in
+                                              cfg.sharding_overrides],
+                       "moe_impl": cfg.moe_impl},
+           "capacity": cfg.moe_capacity, "dropless_capacity": E / k,
+           "launcher": launcher}
+    store = tempfile.mkdtemp(prefix="chip_smoke_moe_ep_")
+    tdist.init_process_group(
+        BACKENDS[dev.type], init_method=f"file://{store}/store",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_local_mesh(dev.type)
+        sharding.set_activation_mesh(mesh)
+
+        def build(capacity):
+            """The model at ``capacity``, weights from ``seed``, placed."""
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            m = LM(dataclasses.replace(cfg, moe_capacity=capacity),
+                   device=dev, generator=gen)
+            return m, sharding.shard_model(m, mesh)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        model, specs = build(cfg.moe_capacity)
+        torch.cuda.synchronize(dev)
+        rec.update(init_and_place_s=time.perf_counter() - t,
+                   params=sum(p.numel() for p in model.parameters()),
+                   config_param_count=cfg.param_count(),
+                   expert_spec=list(specs["blocks.0.moe.w1"][0]))
+        check(all(b.moe.local_experts == slice(0, E) for b in model.blocks)
+              and specs["blocks.0.moe.w1"][0][0] == "model",
+              "moe_ep: the experts are not placed on the model axis")
+        say("moe_ep", **{key: rec[key] for key in (
+            "arch", "reduced", "params", "expert_spec", "init_and_place_s")})
+
+        # ---- check 1: one layer, ppm_ep against the dense dispatch
+        rec["layer"] = moe_layer_check(model.blocks[0].moe, cfg, dev, seed,
+                                       mesh.get_group("model"))
+
+        # ---- check 2: f32 prefill + decode against the full forward
+        rng = np.random.default_rng(seed)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+        with torch.no_grad():
+            cache = init_cache(cfg, 2, 128, dtype=f32, device=dev)
+            lg, _ = prefill(model, {"tokens": prompt}, cache)
+            err = float((lg - model(prompt)[:, -1]).abs().max())
+        rec["f32_prefill_at_capacity_1_25"] = {"max_abs_err": err}
+        say("moe_ep", f32_prefill_at_capacity_1_25=err)
+        check(err <= LM_F32_ATOL, f"moe_ep: the f32 prefill at capacity "
+              f"1.25 is {err} from the forward over the prompt")
+        del model
+        torch.cuda.empty_cache()
+        model, _ = build(E / k)
+        with torch.no_grad():
+            moe_lib.reset_counts()
+            cache = init_cache(cfg, 2, 128, dtype=f32, device=dev)
+            lg, cache = prefill(model, {"tokens": prompt}, cache)
+            n_prefill = dict(moe_lib.COUNTS)
+            steps, toks = [lg], [lg.argmax(-1)]
+            moe_lib.reset_counts()
+            for _ in range(8):
+                lg, cache = decode_step(model, toks[-1], cache)
+                steps.append(lg)
+                toks.append(lg.argmax(-1))
+            n_decode = dict(moe_lib.COUNTS)
+            seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
+            want = model(seq)[:, 63:]
+            got = torch.stack(steps, 1)
+        r = {"max_abs_err": float((got - want).abs().max()),
+             "max_abs_logit": float(want.abs().max()), "atol": LM_F32_ATOL,
+             "greedy_equal": bool(torch.equal(want.argmax(-1),
+                                              torch.stack(toks, 1))),
+             "exchanges_prefill": n_prefill, "exchanges_decode": n_decode}
+        rec["f32_prefill_decode"] = r
+        say("moe_ep", f32_prefill_decode=r)
+        check(bool(torch.isfinite(got).all()), "moe_ep: f32 logits not finite")
+        check(r["max_abs_err"] <= LM_F32_ATOL, f"moe_ep: prefill + decode is "
+              f"{r['max_abs_err']} from the full forward (> {LM_F32_ATOL})")
+        check(r["greedy_equal"], "moe_ep: the greedy tokens differ from the "
+              "full forward's")
+        check(n_prefill == {"ppm_ep": L, "dense": 0}
+              and n_decode == {"ppm_ep": 8 * L, "dense": 0},
+              f"moe_ep: exchanges {n_prefill} in the prefill and {n_decode} "
+              f"in 8 decode steps, not {L} and {8 * L}, all ppm_ep")
+        del cache, want, got, steps, seq
+
+        # ---- check 3: the bf16 serving round, recorded and held, then timed
+        sr = SERVING_ROUND
+        max_len = sr["prompt"] + sr["max_new"]
+        prompts = list(rng.integers(0, cfg.vocab,
+                                    (sr["requests"], sr["prompt"]),
+                                    dtype=np.int32))
+        rounds = {"prefill": sr["requests"],
+                  "decode": sr["requests"] // sr["slots"] * sr["max_new"]}
+        xs, remove = moe_inputs(model)
+        routes = {}             # rid -> each call's [L, S, k], prompt first
+
+        def record(srv, kind, _):
+            chose = moe_routes(model, xs)               # [L, B, S, k]
+            xs.clear()
+            if kind == "prefill":           # requests enter in rid order
+                routes[len(routes)] = [chose[:, 0]]
+            else:
+                for slot, req in srv.active.items():
+                    routes[req.rid].append(chose[:, slot])
+
+        try:
+            with torch.no_grad():
+                checked = bf16_round(
+                    model, cfg, dev, prompts, slots=sr["slots"],
+                    max_len=max_len, max_new=sr["max_new"],
+                    keep_logits=True, on_wall=record)
+        finally:
+            remove()
+        cmp = hold_to_full_forward(
+            model, None, cfg, dev, checked["done"], MOE_BF16_ATOL,
+            routes={rid: torch.cat(r, 1) for rid, r in routes.items()})
+        cmp["held_share"] = cmp["held"] / cmp["positions"]
+        rec["serving_round_check"] = cmp
+        say("moe_ep", serving_round_check=cmp)
+        check(cmp["held_share"] >= MOE_HELD_SHARE, f"moe_ep: the forward "
+              f"chose the server's experts for {cmp['held']} of "
+              f"{cmp['positions']} tokens (< {MOE_HELD_SHARE})")
+        served = [d.out for d in checked["done"]]
+        del checked, routes, xs
+
+        exch = {"prefill": 0, "decode": 0}
+        seen = [0]
+
+        def count(_srv, kind, _s):
+            n = moe_lib.COUNTS["ppm_ep"]
+            exch[kind] += n - seen[0]
+            seen[0] = n
+
+        moe_lib.reset_counts()
+        run = bf16_round(model, cfg, dev, prompts, slots=sr["slots"],
+                         max_len=max_len, max_new=sr["max_new"],
+                         on_wall=count)
+        r = dict(sr, source=SERVING_SOURCE, **round_times(run),
+                 exchanges=exch, dense_calls=moe_lib.COUNTS["dense"],
+                 peak_bytes=run["peak_bytes"] - base,
+                 tokens_equal_checked_round=[d.out for d in run["done"]]
+                 == served)
+        srv = run["server"]
+        toks = torch.as_tensor(srv._next_tok, device=dev)
+        with torch.no_grad():
+            r["decode_tick_profile"] = device_profile(
+                lambda: serve.decode_step(srv.model, toks, srv.cache),
+                dev, top=6)
+        r["weight_bytes"] = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+        r["tick_bound_ms"] = r["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+        rec["serving_round"] = r
+        say("moe_ep", serving_round={key: r[key] for key in (
+            "tokens_per_s", "prefill_ms_median", "decode_ms_median",
+            "decode_ticks", "exchanges", "dense_calls", "peak_bytes",
+            "tick_bound_ms", "tokens_equal_checked_round")},
+            tick_device_busy_ms=r["decode_tick_profile"]["device_busy_ms"],
+            tick_wall_ms=r["decode_tick_profile"]["wall_ms"])
+        check(r["tokens_equal_checked_round"], "moe_ep: the timed round's "
+              "tokens differ from the checked round's")
+        check(exch == {kind: L * n for kind, n in rounds.items()}
+              and r["dense_calls"] == 0,
+              f"moe_ep: the round's exchanges {exch} (dense calls "
+              f"{r['dense_calls']}) are not {L} a prefill and a tick")
+        del run, srv, model
+    finally:
+        sharding.set_activation_mesh(None)
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1092,6 +1508,10 @@ def main() -> int:
     background = concurrent.futures.ThreadPoolExecutor(2)
     building = background.submit(timed_build)
     launching = background.submit(train_launchers, dev)
+    serving = background.submit(
+        run_launcher, "moe_ep", "serve_smoke",
+        ("repro_torch.launch.serve", "--arch", MOE_EP_ARCH, "--smoke",
+         "--device", dev.type), "[serve] 8 requests")
 
     # ---------------- graph ----------------
     t0 = time.perf_counter()
@@ -1115,6 +1535,7 @@ def main() -> int:
     t = time.perf_counter()
     launchers = launching.result()
     launchers["join_wait_s"] = time.perf_counter() - t
+    moe_ep_launcher = serving.result()
     background.shutdown()
     part_edges = np.diff(L.blk_off[::L.k])   # edges per destination partition
     report["graph"]["part_edges_max_over_mean"] = float(
@@ -3712,6 +4133,17 @@ def main() -> int:
           "the lm phase launched a GPOP kernel")
     report["lm"]["phase_s"] = time.perf_counter() - t
     say("lm", phase_s=report["lm"]["phase_s"])
+
+    # ---------------- moe_ep ----------------
+    t = time.perf_counter()
+    c0 = counts()
+    report["moe_ep"] = moe_ep_phase(dev, args.seed, moe_ep_launcher)
+    report["moe_ep"]["ppm_launches"] = {name: counts()[name] - c0[name]
+                                        for name in c0}
+    check(not any(report["moe_ep"]["ppm_launches"].values()),
+          "the moe_ep phase launched a GPOP kernel")
+    report["moe_ep"]["phase_s"] = time.perf_counter() - t
+    say("moe_ep", nvidia_smi=smi, phase_s=report["moe_ep"]["phase_s"])
 
     # ---------------- train ----------------
     t = time.perf_counter()

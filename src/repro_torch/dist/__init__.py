@@ -18,7 +18,8 @@ between CUDA devices, gloo between CPU ranks.  The caller initialises the
 process group, as ``torchrun`` does, or with ``init_process_group(backend,
 init_method=..., world_size=..., rank=...)``; :func:`make_mesh` then names
 the rank's device.  The reference's JAX version shims (``compat``) have no
-counterpart, and its LM sharding rules (``sharding``) are not ported yet.
+counterpart; the LM stack's sharding rules are :mod:`.sharding`, over the
+named meshes of :mod:`repro_torch.launch.mesh`.
 """
 from __future__ import annotations
 

@@ -63,7 +63,7 @@ def state_to_torch(state: dict, device="cuda") -> dict:
     return {key: to_torch(v, dev) for key, v in state.items()}
 
 
-def lm_params_from_reference(params, cfg) -> dict:
+def lm_params_from_reference(params, cfg, model=None) -> dict:
     """The reference's ``init_lm`` tree (nested dicts of NumPy or JAX
     arrays) as a state dict of :class:`repro_torch.models.LM` (f32 CPU
     tensors; ``load_state_dict`` moves them to the model's device).
@@ -72,7 +72,9 @@ def lm_params_from_reference(params, cfg) -> dict:
     ``blocks.<i>``; ``[d_in, d_out]`` matrices become ``nn.Linear``
     weights (transposed); the SSM's ``conv_x``, ``conv_B``, ``conv_C``
     ([K, C] each) become one ``conv_weight`` [C, 1, K]; MoE expert stacks
-    keep the reference's layout."""
+    keep the reference's layout.  With ``model``, a model placed on a mesh
+    (:func:`repro_torch.dist.sharding.shard_model`), each MoE layer's
+    expert stacks keep only the experts it holds (``local_experts``)."""
     def t(a):
         return torch.from_numpy(np.array(np.asarray(a), np.float32))
 
@@ -118,8 +120,10 @@ def lm_params_from_reference(params, cfg) -> dict:
         if "moe" in layers:
             m = layers["moe"]
             sd[f"{b}.moe.router.weight"] = lin(m["router"][i])
+            rows = (slice(None) if model is None
+                    else model.blocks[i].moe.local_experts)
             for n in ("w1", "w3", "w2"):
-                sd[f"{b}.moe.{n}"] = t(m[n][i])
+                sd[f"{b}.moe.{n}"] = t(np.asarray(m[n][i])[rows])
             if "shared" in m:
                 sd.update(prefixed(f"{b}.moe.shared", mlp(m["shared"], i)))
         else:

@@ -15,22 +15,33 @@ Graph-analytics serving (--graph; everything routes through
 
 ``--ckpt DIR`` serves the weights of the latest checkpoint that
 ``python -m repro_torch.launch.train --ckpt DIR`` wrote (its optimizer
-state is not read).  The reference's mesh placement of the weights is not
-ported.
+state is not read).
+
+The weights are placed as the reference places them: on
+``make_local_mesh`` (every rank on the data axis) by the sharding rules,
+with that mesh active for the model's MoE dispatch.  Under ``torchrun``
+the mesh spans the environment's process group; otherwise the launcher
+starts one of world size 1 (NCCL on the card, gloo on the CPU) and ends
+it when done.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, get_smoke_config
 from ..core.engine import resolve_device
+from ..dist import BACKENDS
+from ..dist.sharding import default_rules, set_activation_mesh, shard_model
 from ..models import LM
 from ..serve import GraphQuery, GraphQueryServer, Request, ServeConfig, Server
 from ..train import checkpoint
+from .mesh import make_local_mesh
 
 
 def serve_graph(args):
@@ -98,6 +109,23 @@ def main(argv=None):
     if not cfg.decoder:
         raise SystemExit(f"{args.arch} is encoder-only; no decode serving")
     dev = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    if own_group and "WORLD_SIZE" in os.environ:      # torchrun
+        dist.init_process_group(BACKENDS[dev.type])
+    elif own_group:
+        dist.init_process_group(BACKENDS[dev.type], store=dist.HashStore(),
+                                world_size=1, rank=0)
+    try:
+        serve_lm(args, cfg, dev)
+    finally:
+        set_activation_mesh(None)
+        if own_group:
+            dist.destroy_process_group()
+
+
+def serve_lm(args, cfg, dev):
+    """The LM workload on the weights placed on ``make_local_mesh``."""
+    mesh = make_local_mesh(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     model = LM(cfg, device=dev, generator=gen)
@@ -105,6 +133,10 @@ def main(argv=None):
     if args.ckpt:
         _, st = checkpoint.restore(args.ckpt, model)
         print(f"[serve] loaded checkpoint step {st}", flush=True)
+    # the reference's placement: default rules (FSDP/TP degenerate to
+    # whole weights here) and the mesh active for the MoE dispatch
+    set_activation_mesh(mesh)
+    shard_model(model, mesh, default_rules(mesh))
     srv = Server(model, n_slots=args.slots, max_len=args.max_len,
                  dtype=dtype)
     rng = np.random.default_rng(0)

@@ -4,9 +4,12 @@ A copy of :mod:`repro.models.config` (no JAX in it), kept here so that the
 port imports nothing of the JAX package; the tests hold the two field for
 field.  One dataclass describes dense/GQA, MoE, SSM (Mamba2/SSD), hybrid
 (Zamba2), and stub-frontend (VLM/audio) transformers.  Exact per-arch
-values live in ``repro_torch.configs.<id>``.  The sharding fields
-(``sharding_overrides``, ``moe_ep``, ``moe_impl``, ``remat_policy``) are
-carried for parity; the port's one-device forward reads none of them.
+values live in ``repro_torch.configs.<id>``.  Of the variant fields,
+``sharding_overrides`` feeds :func:`repro_torch.dist.sharding.default_rules`,
+``moe_impl`` picks the MoE dispatch and ``remat_policy`` the training remat;
+``moe_ep`` only chooses the reference's activation-sharding hints
+(``constrain``), which the port has no counterpart of, and is carried for
+parity.
 """
 from __future__ import annotations
 

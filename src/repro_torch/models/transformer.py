@@ -25,8 +25,7 @@ Training: :func:`lm_loss` runs the backbone with remat (each block under
 from __future__ import annotations
 
 import functools
-import re
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -329,25 +328,181 @@ class LM(nn.Module):
         return self.lm_logits(self.backbone(h, positions))
 
 
+# ----------------------------------------------------------------------
+# the reference's leaves: logical axes, and where the port holds them
+# ----------------------------------------------------------------------
+
+def reference_axes(cfg: ModelConfig) -> dict:
+    """The reference ``init_lm``'s leaves by path (``"layers/attn/wq"``):
+    (logical axes, shape), in the reference's own order and shape (a
+    ``[d_in, d_out]`` matrix; the layer axis in front of a stacked leaf).
+    A copy of the axes that the reference's ``init_lm`` and its
+    ``attention_params``, ``mlp_params``, ``moe_params`` and
+    ``ssm_params`` return, read by :mod:`repro_torch.dist.sharding`."""
+    L, d = cfg.n_layers, cfg.d_model
+    out = {"embed": (("vocab", "embed"), (cfg.vocab, d)),
+           "final_norm": ((None,), (d,))}
+
+    def leaf(path, axes, shape, stacked):
+        out[path] = ((("layers",) + axes, (L,) + shape) if stacked
+                     else (axes, shape))
+
+    def attention(pre, d_in, stacked):
+        H, KV, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+        leaf(pre + "wq", ("embed", "heads"), (d_in, H * dh), stacked)
+        leaf(pre + "wk", ("embed", "kv"), (d_in, KV * dh), stacked)
+        leaf(pre + "wv", ("embed", "kv"), (d_in, KV * dh), stacked)
+        leaf(pre + "wo", ("heads", "embed"), (H * dh, d), stacked)
+        if cfg.qkv_bias:
+            leaf(pre + "bq", ("heads",), (H * dh,), stacked)
+            leaf(pre + "bk", ("kv",), (KV * dh,), stacked)
+            leaf(pre + "bv", ("kv",), (KV * dh,), stacked)
+
+    def mlp(pre, ff, stacked):
+        leaf(pre + "w1", ("embed", "ff"), (d, ff), stacked)
+        leaf(pre + "w3", ("embed", "ff"), (d, ff), stacked)
+        leaf(pre + "w2", ("ff", "embed"), (ff, d), stacked)
+
+    if cfg.is_ssm:
+        di, N, H, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+        s = "layers/ssm/"
+        leaf(s + "wz", ("embed", "ssm_inner"), (d, di), True)
+        leaf(s + "wx", ("embed", "ssm_inner"), (d, di), True)
+        leaf(s + "wB", ("embed", None), (d, N), True)
+        leaf(s + "wC", ("embed", None), (d, N), True)
+        leaf(s + "wdt", ("embed", "ssm_heads"), (d, H), True)
+        for name in ("dt_bias", "A_log", "D"):
+            leaf(s + name, ("ssm_heads",), (H,), True)
+        leaf(s + "conv_x", (None, "ssm_inner"), (K, di), True)
+        leaf(s + "conv_B", (None, None), (K, N), True)
+        leaf(s + "conv_C", (None, None), (K, N), True)
+        leaf(s + "norm", ("ssm_inner",), (di,), True)
+        leaf(s + "out", ("ssm_inner", "embed"), (di, d), True)
+        leaf("layers/ln", (None,), (d,), True)
+        if cfg.family == "hybrid" and cfg.attn_every:
+            attention("shared/attn/", 2 * d, False)
+            mlp("shared/mlp/", cfg.d_ff, False)
+            leaf("shared/ln1", (None,), (2 * d,), False)
+            leaf("shared/ln2", (None,), (d,), False)
+    else:
+        attention("layers/attn/", d, True)
+        if cfg.is_moe:
+            E, ff = cfg.moe_experts, cfg.moe_d_ff
+            m = "layers/moe/"
+            leaf(m + "router", ("embed", None), (d, E), True)
+            leaf(m + "w1", ("experts", "embed", "ff"), (E, d, ff), True)
+            leaf(m + "w3", ("experts", "embed", "ff"), (E, d, ff), True)
+            leaf(m + "w2", ("experts", "ff", "embed"), (E, ff, d), True)
+            if cfg.moe_shared_expert:
+                mlp(m + "shared/", ff, True)
+        else:
+            mlp("layers/mlp/", cfg.d_ff, True)
+        leaf("layers/ln1", (None,), (d,), True)
+        leaf("layers/ln2", (None,), (d,), True)
+    if cfg.frontend is not None:
+        leaf("frontend_proj", ("embed", None), (d, d), False)
+    return out
+
+
+class LeafSlice(NamedTuple):
+    """Where a port parameter, or its ``rows`` (of dimension 0), lies in a
+    reference leaf: the leaf's ``path``, the parameter's ``layer`` on the
+    leaf's layer axis (None for an unstacked leaf), and for each port
+    dimension the leaf dimension it is (``dims``; None for a unit
+    dimension that only the port has)."""
+    path: str
+    layer: Optional[int]
+    dims: tuple
+    rows: slice = slice(None)
+
+    def port_spec(self, spec) -> tuple:
+        """The leaf's ``spec`` (one entry a leaf dimension) permuted onto
+        the port's parameter.  The port holds one layer a parameter, so a
+        spec that shards the layer axis raises ``ValueError``."""
+        if self.layer is not None and spec[0] is not None:
+            raise ValueError(f"{self.path}: the layer axis is sharded "
+                             f"({spec[0]!r}), and the port holds a "
+                             "parameter a layer")
+        return tuple(None if d is None else spec[d] for d in self.dims)
+
+
+def param_leaves(cfg: ModelConfig) -> dict:
+    """Each parameter of ``LM(cfg)`` by name: the reference leaves
+    (:func:`reference_axes`) it holds, as :class:`LeafSlice` s, as
+    :func:`repro_torch.interop.lm_params_from_reference` carries them
+    across: ``nn.Linear`` weights are the transposes of the reference's
+    ``[d_in, d_out]`` matrices, and the SSM's ``conv_weight`` [C, 1, K]
+    holds ``conv_x``, ``conv_B`` and ``conv_C`` ([K, C] each) in its rows."""
+    out = {"embed.weight": [LeafSlice("embed", None, (0, 1))],
+           "final_norm": [LeafSlice("final_norm", None, (0,))]}
+
+    def put(name, path, layer, linear):
+        n = 0 if layer is None else 1
+        dims = (n + 1, n) if linear else (n,)
+        out[name] = [LeafSlice(path, layer, dims)]
+
+    def attention(name, path, layer):
+        for w in ("wq", "wk", "wv", "wo"):
+            put(f"{name}.{w}.weight", path + w, layer, True)
+        if cfg.qkv_bias:
+            for b in ("bq", "bk", "bv"):
+                put(f"{name}.{b}", path + b, layer, False)
+
+    def mlp(name, path, layer):
+        for w in ("w1", "w3", "w2"):
+            put(f"{name}.{w}.weight", path + w, layer, True)
+
+    for i in range(cfg.n_layers):
+        b = f"blocks.{i}"
+        if cfg.is_ssm:
+            put(f"{b}.ln", "layers/ln", i, False)
+            for w in ("wz", "wx", "wB", "wC", "wdt", "out"):
+                put(f"{b}.ssm.{w}.weight", f"layers/ssm/{w}", i, True)
+            for v in ("dt_bias", "A_log", "D", "norm"):
+                put(f"{b}.ssm.{v}", f"layers/ssm/{v}", i, False)
+            di, N = cfg.d_inner, cfg.ssm_state
+            out[f"{b}.ssm.conv_weight"] = [
+                LeafSlice(f"layers/ssm/conv_{part}", i, (2, None, 1), rows)
+                for part, rows in (("x", slice(0, di)),
+                                   ("B", slice(di, di + N)),
+                                   ("C", slice(di + N, di + 2 * N)))]
+            continue
+        put(f"{b}.ln1", "layers/ln1", i, False)
+        put(f"{b}.ln2", "layers/ln2", i, False)
+        attention(f"{b}.attn", "layers/attn/", i)
+        if cfg.is_moe:
+            put(f"{b}.moe.router.weight", "layers/moe/router", i, True)
+            for w in ("w1", "w3", "w2"):
+                out[f"{b}.moe.{w}"] = [LeafSlice(f"layers/moe/{w}", i,
+                                                 (1, 2, 3))]
+            if cfg.moe_shared_expert:
+                mlp(f"{b}.moe.shared", "layers/moe/shared/", i)
+        else:
+            mlp(f"{b}.mlp", "layers/mlp/", i)
+    if cfg.family == "hybrid" and cfg.attn_every:
+        put("shared.ln1", "shared/ln1", None, False)
+        put("shared.ln2", "shared/ln2", None, False)
+        attention("shared.attn", "shared/attn/", None)
+        mlp("shared.mlp", "shared/mlp/", None)
+    if cfg.frontend is not None:
+        put("frontend_proj.weight", "frontend_proj", None, True)
+    return out
+
+
 def reference_leaves(cfg: ModelConfig, names) -> list:
     """The reference's parameter leaves as groups of the port's parameter
     ``names``: a list of ``[(name, rows), ...]``, ``rows`` a slice of the
-    parameter's first axis.  The reference stacks each layer's weight
-    across the layers into one leaf, and keeps the SSM's ``conv_x``,
-    ``conv_B`` and ``conv_C`` apart where the port concatenates them into
-    one ``conv_weight``; so a statistic the reference takes over a leaf
-    (the int8 gradient compression's scale) spans a group here."""
-    di, N = cfg.d_inner, cfg.ssm_state
-    conv = {"x": slice(0, di), "B": slice(di, di + N),
-            "C": slice(di + N, di + 2 * N)}
+    parameter's first axis (:func:`param_leaves`).  The reference stacks
+    each layer's weight across the layers into one leaf, and keeps the
+    SSM's ``conv_x``, ``conv_B`` and ``conv_C`` apart where the port
+    concatenates them into one ``conv_weight``; so a statistic the
+    reference takes over a leaf (the int8 gradient compression's scale)
+    spans a group here."""
+    leaves = param_leaves(cfg)
     groups = {}
     for name in names:
-        key = re.sub(r"^blocks\.\d+\.", "blocks.*.", name)
-        if name.endswith("ssm.conv_weight"):
-            for part, rows in conv.items():
-                groups.setdefault(f"{key}.{part}", []).append((name, rows))
-        else:
-            groups.setdefault(key, []).append((name, slice(None)))
+        for leaf in leaves[name]:
+            groups.setdefault(leaf.path, []).append((name, leaf.rows))
     return list(groups.values())
 
 

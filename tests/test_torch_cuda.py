@@ -1832,3 +1832,39 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(dev, no_tf32):
     for (n, a), b in zip(mc.state_dict().items(), mg.state_dict().values()):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
                                    atol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ppm_ep_equals_dense_on_one_nccl_rank(dev, no_tf32, nccl_mesh,
+                                              dtype):
+    """``ppm_ep`` on one NCCL rank (world size 1, mesh (1, 1) of (data,
+    model)) equals the dense dispatch bit for bit: at Dm = 1 both bin the
+    same tokens at the same capacity and run the same products on the same
+    bins; the exchange is a copy."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import moe as moe_lib
+    cfg = dataclasses.replace(
+        get_smoke_config("mixtral-8x7b"), moe_impl="ppm_ep",
+        sharding_overrides=(("experts", "model"), ("ff", None)))
+    model = LM(cfg, device=dev).to_compute(dtype)
+    mesh = make_local_mesh("cuda")
+    sharding.set_activation_mesh(mesh)
+    try:
+        sharding.shard_model(model, mesh)
+        moe = model.blocks[0].moe
+        x = torch.randn(2, 64, cfg.d_model, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0)
+                        ).to(dtype)
+        moe_lib.reset_counts()
+        with torch.no_grad():
+            got = moe_lib.moe_fwd(moe, x)
+            want = moe_lib.moe_fwd_dense(moe, x)
+        assert moe_lib.COUNTS == {"ppm_ep": 1, "dense": 1}
+        assert torch.equal(got, want)
+    finally:
+        sharding.set_activation_mesh(None)

@@ -38,7 +38,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.segment_combine", "repro_torch.graph.delta",
             "repro_torch.obs.export", "repro_torch.obs.tracing",
             "repro_torch.dist", "repro_torch.dist.engine",
-            "repro_torch.graph.shard"} <= set(mods)
+            "repro_torch.graph.shard", "repro_torch.dist.sharding",
+            "repro_torch.launch.mesh", "repro_torch.models.moe"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {['repro_torch'] + mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -156,6 +157,22 @@ def test_lm_stack_and_baselines_import_without_jax():
             "import repro_torch.models.transformer, repro_torch.launch.serve\n"
             "from repro_torch.serve import Request, Server\n"
             "from repro_torch.interop import lm_params_from_reference\n"
+            "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'repro.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_lm_sharding_and_meshes_import_without_jax():
+    """The LM sharding rules, the LM meshes and the MoE layer with its
+    ``ppm_ep`` exchange load neither JAX nor the reference."""
+    code = ("import sys\n"
+            "import repro_torch.dist.sharding, repro_torch.launch.mesh\n"
+            "import repro_torch.models.moe\n"
             "print(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
             "             or m.startswith(('jax.', 'repro.'))))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -215,7 +215,129 @@ def serve(mesh, args):
                 n=L.n, k=L.k, q=L.q)
 
 
-SCENARIOS = {"apps": apps, "serve": serve}
+def unflatten(flat: dict) -> dict:
+    """``{"layers/moe/w1": a, ...}`` as the nested dicts of a reference
+    parameter tree."""
+    tree = {}
+    for path, a in flat.items():
+        *head, last = path.split("/")
+        node = tree
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = a
+    return tree
+
+
+def moe_ep(mesh, args):
+    """The MoE layer and the smoke LM under LM meshes: each case of
+    ``args["cases"]`` (arch, config overrides, mesh shape) whose mesh has
+    this world's ranks, its model placed on the mesh by the config's rules
+    and, without overrides, loaded from the reference's weights
+    (``args["dir"]/<arch>.npz``).  By (arch, mesh shape): layer 0's MoE in
+    f32 and bf16 (with the calls' path counts), this rank's coordinates and
+    experts, its block's drop mask and slots, what a batch of one row
+    raised, and for the cases of ``args["lm_cases"]`` the logits of a
+    prefill and of decode steps with the counts of each.  A mesh of three
+    dimensions is over (pod, data, model), of two over (data, model); a
+    rank's coordinates are its batch block (pod major) and its ``model``
+    coordinate."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import sharding
+    from repro_torch.interop import lm_params_from_reference
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import moe as M
+    from repro_torch.serve import decode_step, init_cache, prefill
+
+    x = torch.from_numpy(args["x"])
+    out = {}
+
+    def counted(fn):
+        M.reset_counts()
+        with torch.no_grad():
+            y = fn()
+        return y, dict(M.COUNTS)
+
+    for arch, overrides, shape in args["cases"]:
+        if int(np.prod(shape)) != mesh.size:
+            continue
+        cfg = dataclasses.replace(get_smoke_config(arch), **args["variant"],
+                                  **overrides)
+        axes = ("pod", "data", "model")[-len(shape):]
+        lm = make_lm_mesh(shape, axes, "cpu")
+        model = LM(cfg, device="cpu")
+        sharding.set_activation_mesh(lm)
+        try:
+            sharding.shard_model(model, lm)
+            if not overrides:
+                with np.load(Path(args["dir"]) / f"{arch}.npz") as z:
+                    params = unflatten(dict(z))
+                model.load_state_dict(lm_params_from_reference(
+                    params, cfg, model=model))
+            moe = model.blocks[0].moe
+            b = 0           # the batch block: pod major, as local_block
+            for a, n in zip(axes[:-1], shape[:-1]):
+                b = b * n + lm.get_local_rank(a)
+            rec = {"coords": (b, lm.get_local_rank("model")),
+                   "local_experts": moe.local_experts}
+            rec["f32"] = counted(lambda: M.moe_fwd(moe, x))
+            moe16 = copy.deepcopy(moe).to(torch.bfloat16)
+            y, n = counted(lambda: M.moe_fwd(moe16, x.bfloat16()))
+            rec["bf16"] = (y.float(), n)
+            xb = M.local_block(x, lm)
+            slot, keep, _ = M.dispatch(moe, xb, M.capacity(cfg, xb.shape[1]))
+            rec["keep"], rec["slot"] = keep, slot
+            if int(np.prod(shape)) > shape[-1]:       # data axes past 1
+                try:
+                    M.moe_fwd(moe, x[:1])
+                    rec["one_row"] = None
+                except ValueError as e:
+                    rec["one_row"] = str(e)
+            if (arch, shape) in args["lm_cases"] and not overrides:
+                toks = torch.from_numpy(args["tokens"]).long()
+                cache = init_cache(cfg, toks.shape[0], 32, torch.float32,
+                                   "cpu")
+                (lg, cache), n = counted(lambda: prefill(
+                    model, {"tokens": toks}, cache))
+                steps = [(lg, n)]
+                for t in args["next"].T:
+                    (lg, cache), n = counted(lambda: decode_step(
+                        model, torch.from_numpy(t).long(), cache))
+                    steps.append((lg, n))
+                rec["lm"] = steps
+            out[(arch, tuple(sorted(overrides.items())), shape)] = rec
+        finally:
+            sharding.set_activation_mesh(None)
+    return out
+
+
+def placements(mesh, args):
+    """``args["tensor"]`` distributed on an LM mesh of ``args["shape"]``
+    over ``args["axes"]`` at each spec of ``args["specs"]``
+    (``sharding.placements``): this rank's coordinates and its local block
+    by spec."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    lm = make_lm_mesh(args["shape"], args["axes"], "cpu")
+    t = torch.from_numpy(args["tensor"])
+    return {"coords": tuple(lm.get_local_rank(a) for a in args["axes"]),
+            "local": {spec: distribute_tensor(
+                t, lm, sharding.placements(spec, lm)).to_local().numpy()
+                for spec in args["specs"]}}
+
+
+SCENARIOS = {"apps": apps, "serve": serve, "moe_ep": moe_ep,
+             "placements": placements}
 
 
 def _main(scenario: str, rank: int, world: int, workdir: str) -> None:
